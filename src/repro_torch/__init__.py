@@ -1,0 +1,22 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for one NVIDIA H100.
+
+It mirrors ``repro``'s layout so each module's counterpart is found by
+path, imports ``torch`` and numpy only, and keeps ``repro``'s artifact
+format so indexes move between the two packages.
+
+Layers
+------
+- ``repro_torch.core``      : compression transforms and pipelines
+                              (CenterNorm → PCA → int8 / 1-bit quantizers).
+- ``repro_torch.retrieval`` : exact top-k search over float, fp16, int8 and
+                              1-bit storage; R-Precision; ``.npz`` artifacts.
+- ``repro_torch.kernels``   : hand-written CUDA C++ kernels for Hopper
+                              (``sm_90a``), each beside its plain PyTorch
+                              version.
+- ``repro_torch.data``      : the deterministic synthetic DPR-like corpus.
+
+Device contract: entry points take ``device=None``, which means ``"cuda"``;
+without a CUDA device they raise unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,133 @@
+"""Synthetic DPR-like knowledge base (offline stand-in for HotpotQA/NQ).
+
+A numpy copy of ``repro.data.synthetic``'s generator: the same draws from
+``np.random.default_rng(seed)`` in the same order, so both packages get
+byte-identical corpora from the same seed.  Only the boundary differs —
+this one returns torch tensors on ``device``.
+
+The corpus has the statistics the paper reports for DPR-CLS embeddings:
+768-dim fp32, non-centered (documents carry a large mean offset and norm
+jitter; queries are "more centered"), low effective rank with a power-law
+spectrum and a few rogue dimensions, and two relevant documents per query
+(HotpotQA's two supporting passages).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.utils import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass
+class KBData:
+    docs: torch.Tensor       # (n_docs, d) fp32
+    queries: torch.Tensor    # (n_queries, d) fp32
+    relevant: torch.Tensor   # (n_queries, max_r) int32 doc ids, −1 pad
+    meta: dict
+
+    @property
+    def dim(self) -> int:
+        return int(self.docs.shape[-1])
+
+
+def _kb_arrays(n_queries, n_docs, d, seed, r_eff, alpha, query_noise,
+               doc_noise, doc_mean_norm, query_mean_norm, norm_jitter,
+               beta_sigma, style_scale, mean_in_signal, spans_per_article):
+    rng = np.random.default_rng(seed)
+
+    # signal basis: r_eff orthonormal directions, power-law scaled, with 4
+    # "rogue" high-variance dims mixed in
+    q_full, _ = np.linalg.qr(rng.standard_normal((d, d)).astype(np.float32))
+    basis = q_full[:, :r_eff]                                   # (d, r_eff)
+    spectrum = np.arange(1, r_eff + 1, dtype=np.float32) ** (-alpha / 2)
+    spectrum /= np.sqrt(np.mean(spectrum ** 2))
+    rogue = rng.choice(r_eff, size=4, replace=False)
+    spectrum[rogue] *= 3.0
+
+    def latent_to_obs(z):                                        # (n, r_eff)
+        return (z * spectrum[None, :]) @ basis.T                 # (n, d)
+
+    # population means: much of the document offset lies inside the signal
+    # subspace (breaks raw L2, removed exactly by centering); queries get a
+    # smaller offset partially aligned with the documents'
+    mu_dir_in = latent_to_obs(rng.standard_normal((1, r_eff))
+                              .astype(np.float32))[0]
+    mu_dir_in /= np.linalg.norm(mu_dir_in)
+    mu_docs = doc_mean_norm * (mean_in_signal * mu_dir_in
+                               + np.sqrt(1 - mean_in_signal ** 2)
+                               * q_full[:, r_eff])
+    mu_queries = query_mean_norm * (
+        0.7 * mu_docs / np.linalg.norm(mu_docs)
+        + np.sqrt(1 - 0.7 ** 2) * q_full[:, r_eff + 1])
+
+    # article latents with a tight norm spread (DPR: 12.3 ± 0.6)
+    n_articles = max(2, n_docs // spans_per_article)
+    z_art = rng.standard_normal((n_articles, r_eff)).astype(np.float32)
+    sig = latent_to_obs(z_art)
+    sig_norms = np.linalg.norm(sig, axis=1, keepdims=True)
+    sig = sig / sig_norms * 8.0 \
+        * np.exp(rng.normal(0, 0.05, size=(n_articles, 1))).astype(np.float32)
+
+    # documents: article signal + span noise + mean offset + "style"
+    # components orthogonal to every query (per-document norm variance)
+    art_of_doc = np.repeat(np.arange(n_articles), spans_per_article)[:n_docs]
+    eps_d = rng.standard_normal((n_docs, d)).astype(np.float32) * doc_noise
+    n_style = 8
+    style_basis = q_full[:, r_eff + 2: r_eff + 2 + n_style]      # (d, 8)
+    h = rng.standard_normal((n_docs, n_style)).astype(np.float32) \
+        * (style_scale / np.sqrt(n_style))
+    s_i = np.exp(rng.normal(0.0, norm_jitter, size=(n_docs, 1))
+                 ).astype(np.float32)
+    docs = mu_docs[None, :] + s_i * sig[art_of_doc] \
+        + h @ style_basis.T + eps_d
+
+    # queries: midpoint of two articles + in-subspace noise, scaled by a
+    # heavy-tailed per-query signal strength β
+    a1 = rng.integers(0, n_articles, size=n_queries)
+    a2 = (a1 + 1 + rng.integers(0, n_articles - 1, size=n_queries)) \
+        % n_articles
+    beta = np.exp(rng.normal(0.0, beta_sigma, size=(n_queries, 1))
+                  ).astype(np.float32)
+    eps_q = latent_to_obs(
+        rng.standard_normal((n_queries, r_eff)).astype(np.float32))
+    eps_q *= query_noise * 8.0 / np.sqrt(np.mean(np.sum(eps_q ** 2, -1)))
+    queries = (mu_queries[None, :]
+               + beta * 0.55 * (sig[a1] + sig[a2]) + eps_q)
+
+    first_span = np.arange(n_articles) * spans_per_article
+    rel = np.stack([first_span[a1], first_span[a2]], axis=1)
+    rel = np.minimum(rel, n_docs - 1).astype(np.int32)
+
+    meta = {
+        "doc_l2": float(np.mean(np.linalg.norm(docs, axis=1))),
+        "query_l2": float(np.mean(np.linalg.norm(queries, axis=1))),
+        "doc_l1": float(np.mean(np.sum(np.abs(docs), axis=1))),
+        "query_l1": float(np.mean(np.sum(np.abs(queries), axis=1))),
+        "seed": seed, "r_eff": r_eff, "alpha": alpha,
+    }
+    return docs, queries, rel, meta
+
+
+def make_dpr_like_kb(n_queries: int = 2000, n_docs: int = 50_000,
+                     d: int = 768, seed: int = 0, r_eff: int = 144,
+                     alpha: float = 0.5, query_noise: float = 0.55,
+                     doc_noise: float = 0.15, doc_mean_norm: float = 8.0,
+                     query_mean_norm: float = 3.0, norm_jitter: float = 0.08,
+                     beta_sigma: float = 0.8, style_scale: float = 6.0,
+                     mean_in_signal: float = 0.6,
+                     spans_per_article: int = 1,
+                     device: DeviceLike = None) -> KBData:
+    dev = resolve_device(device)
+    docs, queries, rel, meta = _kb_arrays(
+        n_queries, n_docs, d, seed, r_eff, alpha, query_noise, doc_noise,
+        doc_mean_norm, query_mean_norm, norm_jitter, beta_sigma, style_scale,
+        mean_in_signal, spans_per_article)
+    # jnp.asarray in repro lands in float32; so do these
+    return KBData(docs=torch.from_numpy(np.asarray(docs, np.float32)).to(dev),
+                  queries=torch.from_numpy(
+                      np.asarray(queries, np.float32)).to(dev),
+                  relevant=torch.from_numpy(rel).to(dev), meta=meta)

@@ -1,0 +1,30 @@
+"""Hand-written CUDA C++ kernels for Hopper (``sm_90a``), one per TPU kernel.
+
+Each subpackage holds ``kernel.py`` (the wrapper: checks its inputs,
+launches the kernel for CUDA tensors, counts its launches in
+``<wrapper>.launches``, and runs the plain version for CPU tensors only),
+``ref.py`` (the plain PyTorch version of the same function) and ``ops.py``
+(the public op, as in ``repro.kernels``).  The CUDA sources live in
+``repro_torch/csrc/`` and are built by :mod:`repro_torch.kernels._build`
+at first use.
+
+- ``int8_ip``     : int8 index scoring, bf16(q⊙scale) × u8 with f32 sums.
+- ``binary_ip``   : 1-bit index scoring, XOR + popcount over packed words.
+- ``topk_blocks`` : per-block top-k, stage 1 of the exact two-stage top-k.
+"""
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches so far} for every kernel wrapper."""
+    from repro_torch.kernels.binary_ip.kernel import binary_ip
+    from repro_torch.kernels.int8_ip.kernel import int8_ip
+    from repro_torch.kernels.topk_blocks.kernel import topk_blocks
+    return {f.__name__: f.launches for f in (int8_ip, binary_ip, topk_blocks)}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels.binary_ip.kernel import binary_ip
+    from repro_torch.kernels.int8_ip.kernel import int8_ip
+    from repro_torch.kernels.topk_blocks.kernel import topk_blocks
+    for f in (int8_ip, binary_ip, topk_blocks):
+        f.launches = 0

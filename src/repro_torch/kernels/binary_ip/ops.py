@@ -1,0 +1,58 @@
+"""Public op: score float/encoded queries against a bit-packed 1-bit index.
+
+With b ∈ {0,1}, s = 2b − 1 ∈ {±1} and value v = b − α = s/2 + c,
+c = 0.5 − α:
+
+    IP(v_q, v_d) = 0.25·(s_q·s_d) + c/2·(Σs_q + Σs_d) + d·c²
+
+For α = 0.5 the correction terms vanish.  d here is the packed width
+(32 per word, encoder padding included), as in ``repro.kernels.binary_ip``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quantization import unpack_bits
+from repro_torch.kernels.binary_ip import ref as _ref
+from repro_torch.kernels.binary_ip.kernel import binary_ip
+
+
+def _sign_sums_from_packed(packed: torch.Tensor, d: int) -> torch.Tensor:
+    """Σ signs per row from packed words: 2·popcount − d."""
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    pop = torch.sum(bits, dim=(-1, -2), dtype=torch.int32)
+    return 2 * pop - d
+
+
+def binary_ip_scores(queries: torch.Tensor, docs_packed: torch.Tensor,
+                     d: int, offset: float = 0.5,
+                     use_kernel: bool = False) -> torch.Tensor:
+    """(Q, D) scores of offset-encoded 1-bit vectors.
+
+    ``queries`` are floats (only their signs matter) or packed int32 words.
+    Both backends give the same scores bit for bit (integer arithmetic).
+    """
+    if queries.dtype == torch.int32:
+        q_signs = unpack_bits(queries, d)
+    else:
+        q_signs = torch.where(queries >= 0, 1, -1).to(torch.int8)
+        if q_signs.shape[-1] != d:
+            raise ValueError("query dim mismatch")
+        pad = docs_packed.shape[-1] * 32 - d
+        if pad:
+            q_signs = F.pad(q_signs, (0, pad), value=-1)
+
+    d_packed = docs_packed.shape[-1] * 32   # includes encoder padding
+    dot = binary_ip if use_kernel else _ref.sign_dot_ref
+    # scaled in place: the (Q, D) matrix is the largest buffer on the path
+    scores = dot(q_signs, docs_packed).float().mul_(0.25)
+    c = 0.5 - offset
+    if c != 0.0:
+        sum_q = torch.sum(q_signs, dim=-1, dtype=torch.int32)
+        sum_d = _sign_sums_from_packed(docs_packed, d_packed)
+        scores = (scores + (c / 2.0) * (sum_q[:, None] + sum_d[None, :])
+                  + d_packed * c * c)
+    return scores

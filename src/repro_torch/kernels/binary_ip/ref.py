@@ -1,0 +1,20 @@
+"""Plain PyTorch version of 1-bit index scoring (paper §4.4 semantics).
+
+``sign_dot_ref`` is the function the CUDA kernel computes: the ±1 sign dot
+over all packed positions, pad bits included.  It multiplies in f32, where
+every partial sum of ±1 terms is an exact integer (|dot| ≤ d < 2²⁴); CUDA
+has no integer matmul.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantization import unpack_bits
+
+
+def sign_dot_ref(q_signs: torch.Tensor, docs_packed: torch.Tensor
+                 ) -> torch.Tensor:
+    """(Q, d) ±1 int8 × (D, d/32) packed words → (Q, D) int32 sign dots."""
+    signs = unpack_bits(docs_packed, q_signs.shape[-1])
+    return (q_signs.float() @ signs.float().T).to(torch.int32)

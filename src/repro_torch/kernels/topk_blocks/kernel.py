@@ -1,0 +1,48 @@
+"""Wrapper of the per-block top-k kernel (``csrc/topk_blocks.cu``).
+
+Replaces ``repro.kernels.topk_blocks.kernel.topk_blocks_pallas``: (Q, D)
+f32 scores → for each block of ``block_d`` columns its top k as
+(Q, n_blocks·k) values and global int32 column indices, equal values to
+the lowest column.  CUDA tensors launch the kernel (or raise); CPU tensors
+run :func:`~repro_torch.kernels.topk_blocks.ref.topk_blocks_ref`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.topk_blocks.ref import topk_blocks_ref
+from repro_torch.utils import cdiv
+
+
+def topk_blocks(scores: torch.Tensor, k: int, block_d: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, D) f32 → per-block top-k values/indices (Q, n_blocks·k)."""
+    if scores.dtype != torch.float32 or scores.ndim != 2:
+        raise TypeError(f"topk_blocks takes a 2-D float32 matrix, got "
+                        f"{scores.dtype} {tuple(scores.shape)}")
+    if k < 1 or block_d < 1:
+        raise ValueError(f"topk_blocks needs k ≥ 1 and block_d ≥ 1, got "
+                         f"k={k}, block_d={block_d}")
+    if scores.device.type == "cpu":
+        return topk_blocks_ref(scores, k, block_d)
+    if scores.device.type != "cuda":
+        raise ValueError(f"topk_blocks: unsupported device {scores.device}")
+    s = scores.contiguous()
+    n_q, n_d = s.shape
+    k = min(k, n_d)
+    n_blocks = cdiv(n_d, block_d)
+    vals = torch.empty((n_q, n_blocks * k), dtype=torch.float32,
+                       device=s.device)
+    idx = torch.empty((n_q, n_blocks * k), dtype=torch.int32, device=s.device)
+    if n_q and n_d:
+        with torch.cuda.device(s.device):
+            _build.check(_build.library().topk_blocks_launch(
+                s.data_ptr(), vals.data_ptr(), idx.data_ptr(), n_q, n_d, k,
+                block_d, n_blocks, _build.stream_handle(s)), "topk_blocks")
+        topk_blocks.launches += 1
+    return vals, idx
+
+
+topk_blocks.launches = 0

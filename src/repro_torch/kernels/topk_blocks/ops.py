@@ -1,0 +1,37 @@
+"""Public op: exact two-stage top-k over a score matrix.
+
+Stage 1 (:func:`~repro_torch.kernels.topk_blocks.kernel.topk_blocks`) keeps
+each block's top k; stage 2 ranks those candidates by (score desc, id
+asc) with :func:`~repro_torch.retrieval.topk.topk_score_then_id`.  Every
+global top-k element is a top-k element of its own block, so the result
+is exact, in ``lax.top_k``'s order on the full row.  Counterpart of
+``repro.kernels.topk_blocks.ops``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.topk_blocks import ref as _ref
+from repro_torch.kernels.topk_blocks.kernel import topk_blocks
+
+MIN_BLOCK_D = 1024
+
+
+def default_block_d(k: int) -> int:
+    """``max(1024, next power of two ≥ k)`` — a block always holds k."""
+    return max(MIN_BLOCK_D, 1 << max(int(k) - 1, 0).bit_length())
+
+
+def streaming_topk(scores: torch.Tensor, k: int, use_kernel: bool = False,
+                   block_d: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, D) → top-k (values, global int64 indices), descending."""
+    from repro_torch.retrieval.topk import topk_score_then_id
+
+    if not use_kernel:
+        vals, idx = _ref.topk_ref(scores, k)
+        return vals, idx.long()
+    vals, idx = topk_blocks(scores, k, block_d or default_block_d(k))
+    vals, idx = topk_score_then_id(vals, idx, min(k, scores.shape[-1]))
+    return vals, idx.long()

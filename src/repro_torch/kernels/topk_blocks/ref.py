@@ -1,0 +1,46 @@
+"""Plain PyTorch versions of the exact top-k.
+
+``topk_blocks_ref`` runs the Pallas tile kernel's own algorithm on every
+block of ``block_d`` columns at once: k rounds of max, the lowest column
+holding it, then that column set to −inf; columns past D are −inf pads.
+``topk_ref`` is exact top-k over the full row with ties to the lowest
+column — ``lax.top_k``'s order.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.utils import cdiv
+
+NEG_INF = float("-inf")
+
+
+def topk_blocks_ref(scores: torch.Tensor, k: int, block_d: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, D) → per-block top-k values/global indices (Q, n_blocks·k)."""
+    n_q, n_d = scores.shape
+    k = min(k, n_d)
+    n_blocks = cdiv(n_d, block_d)
+    s = F.pad(scores.float(), (0, n_blocks * block_d - n_d), value=NEG_INF)
+    s = s.reshape(n_q, n_blocks, block_d).clone()
+    iota = torch.arange(block_d, device=s.device)
+    base = torch.arange(n_blocks, device=s.device)[None, :] * block_d
+    vals = torch.empty((n_q, n_blocks, k), device=s.device)
+    idx = torch.empty((n_q, n_blocks, k), dtype=torch.int32, device=s.device)
+    for i in range(k):
+        m = torch.amax(s, dim=-1)
+        am = torch.amin(torch.where(s == m[..., None], iota, block_d), dim=-1)
+        vals[..., i] = m
+        idx[..., i] = am + base
+        s.scatter_(-1, am[..., None], NEG_INF)
+    return vals.reshape(n_q, -1), idx.reshape(n_q, -1)
+
+
+def topk_ref(scores: torch.Tensor, k: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over the full row; equal scores go to the lowest column."""
+    k = min(k, scores.shape[-1])
+    order = torch.sort(-scores, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(scores, -1, order), order

@@ -1,0 +1,33 @@
+"""Dense retrieval substrate in PyTorch: exact top-k, metrics, artifacts.
+
+The declarative front door is :mod:`repro_torch.retrieval.api`::
+
+    spec = IndexSpec(method="pca_int8", dim=128, post=False)
+    index = build_index(spec, docs, queries_sample)       # on CUDA
+    index.save("kb.npz");  index = load_index("kb.npz")
+"""
+
+from repro_torch.retrieval.api import (IndexSpec, ShardSpec, build_index,
+                                       load_index, load_index_meta,
+                                       save_index)
+from repro_torch.retrieval.index import CompressedIndex, DenseIndex
+from repro_torch.retrieval.rprecision import (r_precision,
+                                              r_precision_from_ids,
+                                              recall_at_k,
+                                              retrieved_relevant_counts)
+from repro_torch.retrieval.scorers import (Scorer, get_scorer,
+                                           register_scorer,
+                                           scorer_for_pipeline, scorer_names)
+from repro_torch.retrieval.topk import (masked_topk_by_id, resolve_k,
+                                        topk_score_then_id, topk_search)
+
+__all__ = [
+    "IndexSpec", "ShardSpec", "build_index", "load_index",
+    "load_index_meta", "save_index",
+    "CompressedIndex", "DenseIndex",
+    "Scorer", "get_scorer", "register_scorer",
+    "scorer_for_pipeline", "scorer_names",
+    "r_precision", "r_precision_from_ids", "recall_at_k",
+    "retrieved_relevant_counts",
+    "masked_topk_by_id", "resolve_k", "topk_score_then_id", "topk_search",
+]

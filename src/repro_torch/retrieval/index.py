@@ -1,0 +1,217 @@
+"""Dense and compressed KB indexes (exact search).
+
+Counterpart of ``repro.retrieval.index`` (IVF promotion, ``to_ivf``, waits
+for slice 2 of the port).  :class:`DenseIndex` is the uncompressed
+baseline; :class:`CompressedIndex` applies a fitted
+:class:`~repro_torch.core.pipeline.CompressionPipeline` and stores the
+encoded representation (fp16 / uint8 codes / packed sign words), scored
+through the :mod:`~repro_torch.retrieval.scorers` backends.
+
+Both live on one device, given at construction (``None`` means CUDA;
+without a CUDA device pass ``device="cpu"``).  Quantized search runs in
+query chunks: per chunk the float query stages, the query encoding, the
+scoring kernel and the two-stage top-k, so a (chunk, D) score matrix is
+the largest buffer.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.pipeline import CompressionPipeline
+from repro_torch.core.preprocess import as_tensor
+from repro_torch.core.quantization import words_from_numpy
+from repro_torch.kernels.topk_blocks.ops import streaming_topk
+from repro_torch.retrieval.scorers import (Scorer, apply_float_stages,
+                                           scorer_for_pipeline)
+from repro_torch.retrieval.topk import resolve_k, topk_search
+from repro_torch.utils import (DeviceLike, check_backend, chunked,
+                               resolve_device)
+
+#: queries scored per step on the quantized path: bounds the (Q, D) matrix
+QUERY_CHUNK = 1024
+
+
+def _storage_tensor(x, device: torch.device) -> torch.Tensor:
+    """Storage from a tensor or a numpy array (``repro``'s uint32 words
+    become int32 with the same bytes)."""
+    if not isinstance(x, torch.Tensor) and getattr(x, "dtype", None) == "uint32":
+        return words_from_numpy(x).to(device)
+    return as_tensor(x, device)
+
+
+class DenseIndex:
+    """Flat exact-search index over float vectors.
+
+    ``backend`` picks the top-k path only: kernel (``topk_blocks``) or
+    plain torch; both give the same ranking.
+    """
+
+    def __init__(self, docs, sim: str = "ip", device: DeviceLike = None,
+                 backend: str = "auto"):
+        self.device = resolve_device(device)
+        self.docs = as_tensor(docs, self.device)
+        self.sim = sim
+        self.backend = check_backend(backend)
+        self.spec = None               # set by api.build_index / api.load_index
+
+    def __len__(self) -> int:
+        return int(self.docs.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        return self.docs.numel() * self.docs.element_size()
+
+    def search(self, queries, k: int, doc_chunk: int = 131072
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        k = resolve_k(k, len(self))
+        return topk_search(as_tensor(queries, self.device), self.docs, k,
+                           sim=self.sim, doc_chunk=doc_chunk,
+                           backend=self.backend)
+
+    def add(self, docs) -> "DenseIndex":
+        self.docs = torch.cat([self.docs, as_tensor(docs, self.device)])
+        return self
+
+    def state_dict(self) -> dict:
+        return {"docs": self.docs}
+
+    def load_state_dict(self, sd: dict) -> "DenseIndex":
+        self.docs = as_tensor(sd["docs"], self.device)
+        return self
+
+    def save(self, path: str) -> None:
+        from repro_torch.retrieval.api import save_index
+        save_index(self, path)
+
+    @classmethod
+    def load(cls, path: str, device: DeviceLike = None) -> "DenseIndex":
+        from repro_torch.retrieval.api import load_index
+        return load_index(path, expect=cls, device=device)
+
+
+class CompressedIndex:
+    """Thin orchestrator: float pipeline stages + a scorer backend.
+
+    ``backend`` ∈ {"auto", "torch", "kernel"} (``repro``'s "jnp"/"pallas"
+    are accepted and mapped): which numerics score the quantized storage.
+    """
+
+    def __init__(self, pipeline: CompressionPipeline, sim: str = "ip",
+                 backend: str = "auto", device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.pipeline = pipeline
+        self.sim = sim
+        self.backend = check_backend(backend)
+        self.float_stages, self.scorer = scorer_for_pipeline(
+            pipeline, sim=sim, backend=self.backend)
+        self.storage: Optional[torch.Tensor] = None
+        self.spec = None               # set by api.build_index / api.load_index
+        self._n_docs = 0
+        self._dim = 0
+        self._version = 0
+        self._decoded_cache: Optional[torch.Tensor] = None
+
+    @classmethod
+    def build(cls, docs, queries_sample, pipeline: CompressionPipeline,
+              sim: str = "ip", backend: str = "auto",
+              rng: Optional[torch.Generator] = None,
+              device: DeviceLike = None) -> "CompressedIndex":
+        """Fit ``pipeline`` on the corpus, then encode it into an index."""
+        dev = resolve_device(device)
+        docs = as_tensor(docs, dev)
+        if queries_sample is not None:
+            queries_sample = as_tensor(queries_sample, dev)
+        pipeline.fit(docs, queries_sample, rng=rng)
+        idx = cls(pipeline, sim=sim, backend=backend, device=dev)
+        idx.add(docs)
+        return idx
+
+    def add(self, docs) -> "CompressedIndex":
+        x = apply_float_stages(self.float_stages,
+                               as_tensor(docs, self.device), "docs")
+        self._dim = int(x.shape[-1])
+        enc = self.scorer.encode_docs(x)
+        self.storage = (enc if self.storage is None
+                        else torch.cat([self.storage, enc]))
+        self._n_docs = int(self.storage.shape[0])
+        self._version += 1
+        self._decoded_cache = None     # storage changed: drop the float view
+        return self
+
+    def __len__(self) -> int:
+        return self._n_docs
+
+    @property
+    def nbytes(self) -> int:
+        if self.storage is None:
+            raise ValueError("index is empty")
+        return self.storage.numel() * self.storage.element_size()
+
+    def encode_queries(self, queries) -> torch.Tensor:
+        """Queries through the float stages (no query-side quantization)."""
+        return apply_float_stages(self.float_stages,
+                                  as_tensor(queries, self.device), "queries")
+
+    def decoded_docs(self) -> torch.Tensor:
+        """Float view of the storage, decoded once and cached (float and
+        fp16 storage only; ``nbytes`` reports the storage alone)."""
+        if type(self.scorer) is Scorer:
+            return self.storage
+        if self._decoded_cache is None:
+            self._decoded_cache = self.scorer.decode(self.storage)
+        return self._decoded_cache
+
+    def search(self, queries, k: int, doc_chunk: int = 131072
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        k = resolve_k(k, self._n_docs)
+        if self.scorer.name in ("float", "fp16"):
+            # float storage: stream the (cached) float view in doc chunks
+            return topk_search(self.encode_queries(queries),
+                               self.decoded_docs(), k, sim=self.sim,
+                               doc_chunk=doc_chunk, backend=self.backend)
+        queries = as_tensor(queries, self.device)
+        params = self.scorer.params()
+        kernel = self.scorer.use_kernel(self.storage)
+        vals, ids = [], []
+        for s, e in chunked(queries.shape[0], QUERY_CHUNK):
+            q = self.scorer.encode_queries(self.encode_queries(queries[s:e]))
+            scores = self.scorer.scores(q, self.storage, params=params)
+            v, i = streaming_topk(scores, k, use_kernel=kernel)
+            del scores                 # free the (chunk, D) matrix early
+            vals.append(v)
+            ids.append(i)
+        return torch.cat(vals), torch.cat(ids)
+
+    def state_dict(self) -> dict:
+        """Pipeline state (incl. scorer codebooks), the encoded storage and
+        the bookkeeping counters."""
+        return {"pipeline": self.pipeline.state_dict(),
+                "storage": self.storage,
+                "scorer_extra": self.scorer.extra_state(),
+                "n_docs": self._n_docs, "dim": self._dim,
+                "version": self._version}
+
+    def load_state_dict(self, sd: dict) -> "CompressedIndex":
+        """Load state from tensors or numpy arrays (``repro``'s artifacts)."""
+        self.pipeline.load_state_dict(sd["pipeline"], self.device)
+        # the scorer holds the same quantizer object as the pipeline's
+        # trailing stage, so its codebooks are now loaded too
+        self.storage = _storage_tensor(sd["storage"], self.device)
+        self.scorer.load_extra_state(sd.get("scorer_extra", {}))
+        self._n_docs = int(sd["n_docs"])
+        self._dim = int(sd["dim"])
+        self._version = int(sd.get("version", 0))
+        self._decoded_cache = None
+        return self
+
+    def save(self, path: str) -> None:
+        from repro_torch.retrieval.api import save_index
+        save_index(self, path)
+
+    @classmethod
+    def load(cls, path: str, device: DeviceLike = None) -> "CompressedIndex":
+        from repro_torch.retrieval.api import load_index
+        return load_index(path, expect=cls, device=device)

@@ -1,0 +1,241 @@
+"""Each kernel's plain version against ``repro``'s Pallas kernel.
+
+The Pallas kernels run with ``interpret=True`` on the CPU, as
+``tests/test_kernels.py`` runs them.  On CPU tensors the port's kernel
+wrappers run these plain versions; the CUDA kernels themselves are held
+against the same plain versions on the card by ``chip_smoke.py``.
+
+Bars: binary_ip and topk_blocks exactly (integer arithmetic / ordering);
+int8_ip to atol = 1e-5·max|scores| (f32 summation order), and the ops to
+the reference's own bars (``tests/test_kernels.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core.quantization import Int8Quantizer, pack_bits  # noqa: E402
+from repro.kernels.binary_ip import ops as r_bops  # noqa: E402
+from repro.kernels.binary_ip import ref as r_bref  # noqa: E402
+from repro.kernels.binary_ip.kernel import binary_ip_pallas  # noqa: E402
+from repro.kernels.int8_ip import ops as r_iops  # noqa: E402
+from repro.kernels.int8_ip import ref as r_iref  # noqa: E402
+from repro.kernels.int8_ip.kernel import int8_ip_pallas  # noqa: E402
+from repro.kernels.topk_blocks import ops as r_tops  # noqa: E402
+from repro.kernels.topk_blocks.kernel import topk_blocks_pallas  # noqa: E402
+from repro_torch.core.quantization import words_from_numpy  # noqa: E402
+from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels.binary_ip import ops as p_bops  # noqa: E402
+from repro_torch.kernels.binary_ip.kernel import binary_ip  # noqa: E402
+from repro_torch.kernels.binary_ip.ref import sign_dot_ref  # noqa: E402
+from repro_torch.kernels.int8_ip import ops as p_iops  # noqa: E402
+from repro_torch.kernels.int8_ip.kernel import int8_ip  # noqa: E402
+from repro_torch.kernels.int8_ip.ref import int8_ip_ref  # noqa: E402
+from repro_torch.kernels.topk_blocks import ops as p_tops  # noqa: E402
+from repro_torch.kernels.topk_blocks.kernel import topk_blocks  # noqa: E402
+from repro_torch.kernels.topk_blocks.ref import topk_blocks_ref  # noqa: E402
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _int8_case(q, d, dim, seed):
+    rng = np.random.default_rng(seed)
+    queries, docs = _rand(rng, q, dim), _rand(rng, d, dim)
+    quant = Int8Quantizer().fit(jnp.asarray(docs))
+    codes = np.asarray(quant.encode(jnp.asarray(docs)))
+    scale = np.asarray(quant.state["scale"])
+    zero = np.asarray(quant.state["zero"])
+    return queries, codes, scale, zero
+
+
+# ---------------------------------------------------------------------------
+# int8_ip
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q,d,dim,bq,bd", [(5, 37, 48, 8, 16),
+                                           (16, 100, 64, 8, 32),
+                                           (1, 3, 128, 8, 16)])
+def test_int8_ip_ref_matches_pallas(q, d, dim, bq, bd):
+    queries, codes, scale, _ = _int8_case(q, d, dim, q + d)
+    q_scaled = (jnp.asarray(queries) * scale).astype(jnp.bfloat16)
+    want = np.asarray(int8_ip_pallas(q_scaled, jnp.asarray(codes), block_q=bq,
+                                     block_d=bd, interpret=True))
+    got_q = (torch.from_numpy(queries) * torch.from_numpy(scale)) \
+        .to(torch.bfloat16)
+    got = int8_ip_ref(got_q, torch.from_numpy(codes)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    # the wrapper on a CPU tensor is the plain version
+    np.testing.assert_array_equal(int8_ip(got_q, torch.from_numpy(codes))
+                                  .numpy(), got)
+
+
+@pytest.mark.parametrize("sim", ["ip", "l2"])
+@pytest.mark.parametrize("q,d,dim", [(5, 37, 48), (16, 100, 64)])
+def test_int8_scores_both_numerics(sim, q, d, dim):
+    queries, codes, scale, zero = _int8_case(q, d, dim, q + d)
+    jq, jc, js, jz = (jnp.asarray(a) for a in (queries, codes, scale, zero))
+    tq, tc, ts, tz = (torch.from_numpy(a) for a in (queries, codes, scale,
+                                                    zero))
+    oracle = np.asarray(r_iref.int8_scores_ref(jq, jc, js, jz, sim))
+    mag = np.abs(oracle).max()
+    # jnp numerics: decode to f32, GEMM
+    got = p_iops.int8_scores(tq, tc, ts, tz, sim, use_kernel=False).numpy()
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5 * mag)
+    # pallas numerics: bf16(q⊙scale) × u8, as repro's interpret-mode path
+    want = np.asarray(r_iops.int8_scores(jq, jc, js, jz, sim,
+                                         use_pallas=True, interpret=True,
+                                         block_q=8, block_d=16))
+    got = p_iops.int8_scores(tq, tc, ts, tz, sim, use_kernel=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * mag)
+    np.testing.assert_allclose(got, oracle, atol=0.02 * mag)  # bf16 queries
+
+
+# ---------------------------------------------------------------------------
+# binary_ip
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q,d,dim,bq,bd", [(7, 33, 64, 8, 16),
+                                           (32, 128, 96, 16, 64),
+                                           (1, 5, 32, 8, 8),
+                                           (64, 300, 256, 32, 128)])
+def test_sign_dot_ref_matches_pallas(q, d, dim, bq, bd):
+    rng = np.random.default_rng(q * d)
+    queries, docs = _rand(rng, q, dim), _rand(rng, d, dim)
+    signs = np.where(queries >= 0, 1, -1).astype(np.int8)
+    words = np.asarray(pack_bits(jnp.asarray(docs)))
+    want = np.asarray(binary_ip_pallas(jnp.asarray(signs), jnp.asarray(words),
+                                       block_q=bq, block_d=bd, interpret=True))
+    got = sign_dot_ref(torch.from_numpy(signs), words_from_numpy(words))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        binary_ip(torch.from_numpy(signs), words_from_numpy(words)).numpy(),
+        want)
+
+
+@pytest.mark.parametrize("offset", [0.5, 0.0, 0.25])
+@pytest.mark.parametrize("dim", [64, 45])
+def test_binary_ip_scores_both_backends(offset, dim):
+    rng = np.random.default_rng(0)
+    queries, docs = _rand(rng, 9, dim), _rand(rng, 40, dim)
+    pad = (-dim) % 32
+    docs_p = np.pad(docs, ((0, 0), (0, pad)), constant_values=-1.0)
+    words = np.asarray(pack_bits(jnp.asarray(docs_p)))
+    want = np.asarray(r_bops.binary_ip_scores(
+        jnp.asarray(queries), jnp.asarray(words), dim, offset=offset,
+        use_pallas=True, interpret=True, block_q=8, block_d=16))
+    for use_kernel in (False, True):
+        got = p_bops.binary_ip_scores(torch.from_numpy(queries),
+                                      words_from_numpy(words), dim,
+                                      offset=offset, use_kernel=use_kernel)
+        np.testing.assert_array_equal(got.numpy(), want)
+    if dim % 32 == 0:   # the reference's f32 oracle
+        ref = np.asarray(r_bref.binary_ip_scores_ref(
+            pack_bits(jnp.asarray(queries)), jnp.asarray(words), dim, offset))
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+def test_binary_ip_scores_packed_queries():
+    rng = np.random.default_rng(1)
+    queries, docs = _rand(rng, 5, 32), _rand(rng, 20, 32)
+    qp, dp = pack_bits(jnp.asarray(queries)), pack_bits(jnp.asarray(docs))
+    want = np.asarray(r_bops.binary_ip_scores(qp, dp, 32, use_pallas=False))
+    got = p_bops.binary_ip_scores(words_from_numpy(np.asarray(qp)),
+                                  words_from_numpy(np.asarray(dp)), 32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# topk_blocks
+# ---------------------------------------------------------------------------
+
+
+def _tie_matrix():
+    return np.tile(np.arange(16)[::-1] // 2, (3, 1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("q,d,k,bd", [(10, 333, 7, 64), (3, 50, 10, 16),
+                                      (33, 1000, 16, 128), (4, 20, 20, 8)])
+def test_topk_blocks_ref_matches_pallas(q, d, k, bd):
+    """Pads and short last blocks included: (3, 50, 10, 16) leaves two real
+    columns in its last block; (4, 20, 20, 8) has k > block_d."""
+    rng = np.random.default_rng(q * d + k)
+    scores = _rand(rng, q, d)
+    wv, wi = topk_blocks_pallas(jnp.asarray(scores), k, block_q=8,
+                                block_d=bd, interpret=True)
+    gv, gi = topk_blocks_ref(torch.from_numpy(scores), k, bd)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    kv, ki = topk_blocks(torch.from_numpy(scores), k, bd)
+    assert torch.equal(kv, gv) and torch.equal(ki, gi)
+
+
+@pytest.mark.parametrize("k,bd", [(4, 8), (16, 16), (5, 4)])
+def test_topk_blocks_ref_matches_pallas_with_ties(k, bd):
+    scores = _tie_matrix()
+    wv, wi = topk_blocks_pallas(jnp.asarray(scores), k, block_q=2,
+                                block_d=bd, interpret=True)
+    gv, gi = topk_blocks_ref(torch.from_numpy(scores), k, bd)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+@pytest.mark.parametrize("q,d,k,bd", [(10, 333, 7, 64), (3, 50, 10, 16),
+                                      (33, 1000, 16, 128)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_streaming_topk_matches_repro(q, d, k, bd, ties):
+    rng = np.random.default_rng(q * d + k)
+    scores = _rand(rng, q, d)
+    if ties:
+        scores = np.round(scores * 2)
+    want = r_tops.streaming_topk(jnp.asarray(scores), k, use_pallas=True,
+                                 interpret=True, block_q=8, block_d=bd)
+    for use_kernel in (False, True):
+        gv, gi = p_tops.streaming_topk(torch.from_numpy(scores), k,
+                                       use_kernel=use_kernel, block_d=bd)
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("k,want", [(1, 1024), (10, 1024), (1024, 1024),
+                                    (1025, 2048), (5000, 8192)])
+def test_default_block_d_holds_k(k, want):
+    assert p_tops.default_block_d(k) == want
+
+
+# ---------------------------------------------------------------------------
+# wrapper contracts
+# ---------------------------------------------------------------------------
+
+
+def test_wrappers_reject_wrong_types():
+    with pytest.raises(TypeError):
+        int8_ip(torch.zeros(2, 4), torch.zeros(3, 4, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        int8_ip(torch.zeros(2, 4, dtype=torch.bfloat16),
+                torch.zeros(3, 5, dtype=torch.uint8))
+    with pytest.raises(TypeError):
+        binary_ip(torch.ones(2, 32, dtype=torch.int8),
+                  torch.zeros(3, 1, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        binary_ip(torch.ones(2, 64, dtype=torch.int8),
+                  torch.zeros(3, 1, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        topk_blocks(torch.zeros(2, 4, dtype=torch.float64), 2, 4)
+
+
+def test_cpu_tensors_never_count_as_launches():
+    before = launch_counts()
+    int8_ip(torch.zeros(2, 4, dtype=torch.bfloat16),
+            torch.zeros(3, 4, dtype=torch.uint8))
+    binary_ip(torch.ones(2, 32, dtype=torch.int8),
+              torch.zeros(3, 1, dtype=torch.int32))
+    topk_blocks(torch.zeros(2, 4), 2, 4)
+    assert launch_counts() == before
