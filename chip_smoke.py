@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's exact-search path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's exact and IVF search paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-docs 1000000] [--n-queries 2048] [--seed 0]
 
@@ -8,13 +8,17 @@ Phases, each printed as it runs:
    TF32 is switched off for matmuls and cuDNN.  No CUDA device: exit 1.
 2. build — nvcc compiles ``src/repro_torch/csrc/*.cu`` for sm_90a into
    ``build/`` (one process per source, in parallel).
-3. kernels — each Hopper kernel (int8_ip, binary_ip, topk_blocks) runs on
-   the card at the main path's shapes (Q=256, D=1M; d=128 int8, 8 words
-   1-bit; top-k at k=10 and k=100) and is held against its plain PyTorch
-   version on the same inputs: binary_ip and topk_blocks exactly, int8_ip
-   to atol = 1e-5·max|plain| (f32 summation order).  Timed with CUDA
-   events beside the plain version, one PyTorch library call
-   (``library_ms``, used nowhere in the port) and the card's bound.
+3. kernels — each Hopper kernel (int8_ip, binary_ip, topk_blocks,
+   fused_ivf_topk) runs on the card at the main path's shapes (Q=256,
+   D=1M; d=128 int8, 8 words 1-bit; top-k at k=10 and k=100; IVF with
+   nlist 1024, lists of 1221 rows, 64 probes) and is held against its
+   plain PyTorch version on the same inputs: binary_ip, topk_blocks and
+   1-bit IVF exactly, the f32 sums of int8_ip and float/fp16/int8 IVF to
+   atol = 1e-5·max|plain| (summation order), IVF ids equal wherever the
+   plain values' neighbours lie further apart.  Timed with CUDA events
+   beside the plain version, one PyTorch library call (``library_ms``,
+   used nowhere in the port; none gathers, scores and ranks per probe, so
+   null for IVF) and the card's bound.
 4. main path — a synthetic DPR-like KB (768-dim f32, ``--n-docs`` docs)
    indexed with the paper's 24× recipe (PCA-128 + int8) and 100× recipe
    (PCA-245 + 1-bit) plus a float baseline, through ``build_index``;
@@ -25,7 +29,17 @@ Phases, each printed as it runs:
    kernel path is checked against the plain-torch path on the card, and
    one batch per index is traced with torch.profiler (device time by
    kernel, busy share).
-5. the last two lines: ``{"kernels": [...]}`` and the device line.
+5. IVF — the repo's gated IVF recipe (kmeans++, balanced lists, 8
+   Lloyd iterations) at the paper's two widths, nlist 1024 ≈ √1M, nprobe
+   64: PCA-128 + int8 and PCA-245 + rotated 1-bit, through
+   ``build_index``; each is saved and loaded (bit-identical ranking), its
+   kernel path held against the streaming plain-torch path, and
+   nprobe = nlist search over the exact indexes' storage (``to_ivf``)
+   held against exact search.  Then the queries are searched in batches
+   of 256 at nprobe 16, 64 and 256 (qps, p50/p99, recall@10 against
+   nprobe = nlist, R-precision's share of float), with the launch counts
+   set to 0 before and read after; one batch per index is traced.
+6. the last two lines: ``{"kernels": [...]}`` and the device line.
 
 Any failure raises before the last line, and the exit code is non-zero.
 """
@@ -52,6 +66,9 @@ from repro_torch.kernels.binary_ip.kernel import binary_ip  # noqa: E402
 from repro_torch.kernels.binary_ip.ref import sign_dot_ref  # noqa: E402
 from repro_torch.kernels.int8_ip.kernel import int8_ip  # noqa: E402
 from repro_torch.kernels.int8_ip.ref import int8_ip_ref  # noqa: E402
+from repro_torch.kernels.ivf_fused.kernel import (  # noqa: E402
+    MAX_K, fused_ivf_topk)
+from repro_torch.kernels.ivf_fused.ref import fused_ivf_topk_ref  # noqa: E402
 from repro_torch.kernels.topk_blocks.kernel import topk_blocks  # noqa: E402
 from repro_torch.kernels.topk_blocks.ops import (  # noqa: E402
     default_block_d, streaming_topk)
@@ -59,6 +76,9 @@ from repro_torch.kernels.topk_blocks.ref import topk_blocks_ref  # noqa: E402
 
 Q, D_MAIN, D_INT8, W_ONEBIT = 256, 1_000_000, 128, 8
 BATCH, K = 256, 10
+#: IVF at 1M docs: nlist ≈ √1M, the balanced cap's longest list, nprobe
+NLIST, L_MAIN, NPROBE = 1024, 1221, 64
+NPROBES_TIMED = (16, 64, 256)
 
 #: name fragment → (bytes/s, bf16 FLOP/s, int8 OP/s, f32 FLOP/s), dense
 #: rates from NVIDIA's data sheets; the SXM part is the default
@@ -278,13 +298,159 @@ def phase_kernels(rates) -> list[dict]:
     return out
 
 
-def _search_batches(index, queries, k):
+def ranking_agrees(got, want, exact: bool) -> tuple[bool, float]:
+    """Do two (Q, k) rankings agree?  ``exact``: ids and value bits equal.
+    Otherwise values within 1e-5·max|want| (f32 summation order), and ids
+    equal at every rank whose neighbouring wanted values lie further apart
+    than that, and wherever the wanted value is −inf."""
+    (gv, gi), (wv, wi) = got, want
+    fin = torch.isfinite(wv)
+    if gi.shape != wi.shape or not torch.equal(torch.isfinite(gv), fin):
+        return False, float("inf")
+    if not bool(fin.any()):
+        return torch.equal(gi, wi), 0.0
+    err = float((gv[fin] - wv[fin]).abs().max())
+    if exact:
+        return (torch.equal(gi, wi) and torch.equal(
+            gv.view(torch.int32), wv.view(torch.int32))), err
+    tol = 1e-5 * float(wv[fin].abs().max())
+    d = (wv[:, 1:] - wv[:, :-1]).abs().nan_to_num(nan=float("inf"))
+    gap = torch.full_like(wv, float("inf"))
+    gap[:, 1:] = torch.minimum(gap[:, 1:], d)
+    gap[:, :-1] = torch.minimum(gap[:, :-1], d)
+    apart = fin & (gap > tol)
+    ok = (err <= tol and torch.equal(gi[apart], wi[apart])
+          and torch.equal(gi[~fin], wi[~fin]))
+    return ok, err
+
+
+def ivf_case(gen, backend: str, n_q: int, nlist: int, max_len: int,
+             nprobe: int, dim: int = D_INT8, all_pad: int = 4):
+    """Synthetic list-major inputs for ``fused_ivf_topk``: distinct doc ids
+    with ~15% −1 pads and ``all_pad`` empty lists, ``nprobe`` distinct
+    probes per query and a random base, on the card."""
+    dev = "cuda"
+    ids = torch.randperm(nlist * max_len, device=dev, generator=gen) \
+        .to(torch.int32).view(nlist, max_len)
+    ids[torch.rand(nlist, max_len, device=dev, generator=gen) < 0.15] = -1
+    ids[:all_pad] = -1
+    shape = (nlist, max_len, dim)
+    if backend == "float":
+        store = torch.randn(shape, device=dev, generator=gen)
+    elif backend == "fp16":
+        store = torch.randn(shape, device=dev, generator=gen).half()
+    elif backend == "int8":
+        store = torch.randint(0, 256, shape, device=dev, generator=gen,
+                              dtype=torch.uint8)
+    else:
+        store = torch.randint(-2**31, 2**31 - 1, (nlist, max_len, dim // 32),
+                              device=dev, generator=gen, dtype=torch.int32)
+    if backend == "onebit":
+        qe = (torch.randint(0, 2, (n_q, dim), device=dev, generator=gen)
+              * 2 - 1).to(torch.int8)
+    else:
+        qe = torch.randn(n_q, dim, device=dev, generator=gen)
+        if backend == "int8":
+            qe = qe.mul_(0.01).to(torch.bfloat16)
+    probes = torch.stack([
+        torch.randperm(nlist, device=dev, generator=gen)[:nprobe]
+        for _ in range(n_q)]).to(torch.int32)
+    base = torch.randn(n_q, nprobe, device=dev, generator=gen)
+    return probes, qe, store, ids, base
+
+
+def check_ivf_ragged(gen) -> None:
+    """IVF edges the main shapes miss: one probe, k = 100, k beyond the
+    reachable rows (tail (−inf, −1)), k = MAX_K, lists longer than a tile,
+    one-row lists, odd widths."""
+    cases = [  # (n_q, nlist, L, nprobe, k, dim)
+        (5, 64, 300, 1, 10, 128), (7, 64, 300, 5, 100, 96),
+        (3, 16, 50, 2, MAX_K, 64), (4, 8, 5000, 3, 10, 160),
+        (9, 32, 1, 32, 20, 32), (2, 16, 77, 16, 300, 288)]
+    for n_q, nlist, max_len, nprobe, k, dim in cases:
+        for backend in ("float", "fp16", "int8", "onebit"):
+            args = ivf_case(gen, backend, n_q, nlist, max_len, nprobe, dim,
+                            all_pad=1)
+            want = fused_ivf_topk_ref(*args, k=k, backend=backend)
+            ok, _ = ranking_agrees(fused_ivf_topk(*args, k, backend), want,
+                                   exact=backend == "onebit")
+            if not ok:
+                raise AssertionError(
+                    f"fused_ivf_topk[{backend}] disagrees at Q={n_q} "
+                    f"nlist={nlist} L={max_len} nprobe={nprobe} k={k}")
+            if nprobe * max_len < k and not bool(
+                    (want[1][:, -1] == -1).all()):
+                raise AssertionError("unreachable tail is not (-inf, -1)")
+    torch.cuda.synchronize()
+    print("[kernel] fused_ivf_topk ragged: nprobe 1, k 100, k > reachable, "
+          f"k = {MAX_K}, L > tile, L = 1, odd widths: all agree")
+
+
+def phase_ivf_kernel(rates) -> dict:
+    """fused_ivf_topk at the main path's shapes, all four backends."""
+    byte_rate, bf16_rate, int8_rate, f32_rate = rates
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    check_ivf_ragged(gen)
+    rec = {"name": "fused_ivf_topk", "route": "cuda",
+           "source": "src/repro_torch/csrc/ivf_fused.cu",
+           "replaces": "src/repro/kernels/ivf_fused/kernel.py:146",
+           "library_ms": None,
+           "library_note": "no single PyTorch call gathers, scores and "
+                           "ranks each query's probed lists",
+           "shape": f"Q={Q} nlist={NLIST} L={L_MAIN} nprobe={NPROBE} "
+                    f"k={K}; int8 d={D_INT8}, 1-bit {W_ONEBIT} words"}
+    for backend in ("float", "fp16", "int8", "onebit"):
+        dim = 32 * W_ONEBIT if backend == "onebit" else D_INT8
+        args = ivf_case(gen, backend, Q, NLIST, L_MAIN, NPROBE, dim)
+        probes, qe, store, ids, base = args
+        got = fused_ivf_topk(*args, K, backend)
+        want = fused_ivf_topk_ref(*args, k=K, backend=backend)
+        torch.cuda.synchronize()
+        ok, err = ranking_agrees(got, want, exact=backend == "onebit")
+        print(f"[kernel] fused_ivf_topk[{backend}] (Q={Q}, nlist={NLIST}, "
+              f"L={L_MAIN}, nprobe={NPROBE}, k={K}): max_abs_err {err:.3g} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"fused_ivf_topk[{backend}] disagrees with "
+                                 "fused_ivf_topk_ref")
+        if backend not in ("int8", "onebit"):
+            continue
+        # bound: each distinct probed list's rows and ids once, queries,
+        # probes, base and outputs; the valid (query, row) pairs' products
+        n_lists = int(torch.unique(probes).numel())
+        row_bytes = store.shape[-1] * store.element_size()
+        n_bytes = (n_lists * L_MAIN * (row_bytes + 4)
+                   + qe.numel() * qe.element_size() + probes.numel() * 8
+                   + Q * K * 8)
+        pairs = int((ids[probes.long()] >= 0).sum())
+        n_ops = 2.0 * pairs * dim
+        b_ms, b_by = bound(n_bytes, n_ops,
+                           bf16_rate if backend == "int8" else int8_rate,
+                           byte_rate)
+        ms = cuda_ms(lambda: fused_ivf_topk(*args, K, backend), 10)
+        plain_ms = cuda_ms(
+            lambda: fused_ivf_topk_ref(*args, k=K, backend=backend), 2)
+        pre = "" if backend == "int8" else "onebit_"
+        rec.update({f"{pre}max_abs_err": err, f"{pre}ms": ms,
+                    f"{pre}plain_ms": plain_ms, f"{pre}bound_ms": b_ms,
+                    f"{pre}bound_by": b_by,
+                    f"{pre}distinct_lists": n_lists})
+        print(f"[kernel] fused_ivf_topk[{backend}]: {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{n_bytes / 1e9:.4f} GB, {n_ops / 1e9:.3f} GOP)")
+        del got, want, args, probes, qe, store, ids, base
+    torch.cuda.empty_cache()
+    print(f"[kernel] fused_ivf_topk: {json.dumps(rec)}")
+    return rec
+
+
+def _search_batches(index, queries, k, **kw):
     """Search in batches of BATCH; (values, ids, per-batch seconds)."""
     vals, ids, secs = [], [], []
     for s in range(0, queries.shape[0], BATCH):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        v, i = index.search(queries[s: s + BATCH], k)
+        v, i = index.search(queries[s: s + BATCH], k, **kw)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         vals.append(v)
@@ -292,23 +458,32 @@ def _search_batches(index, queries, k):
     return torch.cat(vals), torch.cat(ids), secs
 
 
-def profile_batches(indexes, queries) -> None:
+def profile_batches(indexes, queries, **kw) -> None:
     """Device time by kernel for one search batch per index (torch.profiler)
-    and the device's busy share of the batch's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    and the device's busy share of the batch's wall time.  A warm-up step
+    inside the profiler comes first: without it the trace lost the first
+    kernels of short batches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for name, index in indexes.items():
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            index.search(queries[:BATCH], K, **kw)
+            torch.cuda.synchronize()
+            prof.step()
             t0 = time.perf_counter()
-            index.search(queries[:BATCH], K)
+            index.search(queries[:BATCH], K, **kw)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
         rows = []
         for evt in prof.key_averages():
-            # kernels only: an operator's row repeats its kernels' time
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
+            # kernels only: an operator's row repeats its kernels' time, and
+            # the schedule's step row spans the whole step
+            if evt.device_type != torch.autograd.DeviceType.CUDA or \
+                    evt.key.startswith("ProfilerStep"):
                 continue
             dev_us = getattr(evt, "self_device_time_total",
                              getattr(evt, "self_cuda_time_total", 0))
@@ -322,10 +497,8 @@ def profile_batches(indexes, queries) -> None:
               f"{busy / wall_ms:.3f}; {top}")
 
 
-def phase_main_path(args) -> dict[str, int]:
+def make_kb(args):
     from repro_torch.data import make_dpr_like_kb
-    from repro_torch.retrieval import (IndexSpec, build_index, load_index,
-                                       r_precision_from_ids, recall_at_k)
 
     t0 = time.perf_counter()
     kb = make_dpr_like_kb(n_queries=args.n_queries, n_docs=args.n_docs,
@@ -334,6 +507,14 @@ def phase_main_path(args) -> dict[str, int]:
     print(f"[main] KB {tuple(kb.docs.shape)} f32 docs, "
           f"{tuple(kb.queries.shape)} queries, seed {args.seed}: "
           f"{time.perf_counter() - t0:.1f} s")
+    return kb
+
+
+def phase_main_path(args, kb):
+    """Exact search; returns (launch counts, loaded indexes, float R-prec.)."""
+    from repro_torch.retrieval import (IndexSpec, build_index, load_index,
+                                       r_precision_from_ids, recall_at_k)
+
     recipes = {
         "float": IndexSpec(method="dense"),
         "pca_int8_24x": IndexSpec(method="pca_int8", dim=128, post=False),
@@ -422,6 +603,121 @@ def phase_main_path(args) -> dict[str, int]:
     print(f"[main] launches over the main path: {counts}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_batches(indexes, queries)
+    return counts, indexes, rp_float
+
+
+def phase_ivf(args, kb, exact, rp_float) -> dict[str, int]:
+    """IVF search at the paper's two widths; returns the launch counts of
+    the timed run."""
+    from repro_torch.retrieval import (IndexSpec, build_index, load_index,
+                                       r_precision_from_ids, recall_at_k)
+
+    gated = dict(post=False, ivf=(NLIST, NPROBE), kmeans_iters=8,
+                 kmeans_init="++", balanced_lists=True)
+    recipes = {   # name → (spec, exact index over the same recipe's storage)
+        "ivf_int8_24x": (IndexSpec(method="pca_int8", dim=128, **gated),
+                         "pca_int8_24x"),
+        "ivf_rot_onebit_100x": (
+            IndexSpec(method="pca_rot_onebit", dim=245, **gated),
+            "pca_onebit_100x"),
+    }
+    queries, q0 = kb.queries, kb.queries[:BATCH]
+    search_kw = dict(query_chunk=BATCH)
+    indexes = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (spec, exact_name) in recipes.items():
+            onebit = "onebit" in name
+            t0 = time.perf_counter()
+            built = build_index(spec, kb.docs, kb.queries, device="cuda")
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            path = os.path.join(tmp, f"{name}.npz")
+            built.save(path)
+            loaded = load_index(path, device="cuda")
+            bv, bi = built.search(q0, K, **search_kw)
+            lv, li = loaded.search(q0, K, **search_kw)
+            same = torch.equal(bi, li) and torch.equal(
+                bv.view(torch.int32), lv.view(torch.int32))
+            sizes = torch.bincount(torch.from_numpy(loaded._labels).long(),
+                                   minlength=loaded.nlist)
+            print(f"[ivf] {name}: built in {t_build:.1f} s, nlist "
+                  f"{loaded.nlist}, longest list L {loaded.lists.shape[1]} "
+                  f"(mean {len(loaded) / loaded.nlist:.1f}, empty "
+                  f"{int((sizes == 0).sum())}), {loaded.nbytes} encoded "
+                  f"bytes, aux_nbytes {loaded.aux_nbytes} (list-major copy "
+                  f"included), saved+loaded ranking "
+                  f"{'bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                raise AssertionError(f"{name}: loaded artifact ranks "
+                                     "differently from the built index")
+            # the streaming plain-torch path on the card as the reference
+            ref = load_index(path, device="cuda", backend="torch")
+            rv, ri = ref.search(q0, K, **search_kw)
+            overlap = recall_at_k(li, ri)
+            exact_bits = torch.equal(li, ri) and torch.equal(lv, rv)
+            print(f"[ivf] {name}: kernel path vs streaming plain-torch path "
+                  f"on the card: recall@{K} {overlap:.4f}, "
+                  f"{'bit-identical' if exact_bits else 'not bit-identical'}")
+            if (onebit and not exact_bits) or overlap < 0.95:
+                raise AssertionError(f"{name}: kernel path disagrees with "
+                                     "the streaming path")
+            # nprobe = nlist over the exact index's own storage: exact search
+            t0 = time.perf_counter()
+            promoted = exact[exact_name].to_ivf(NLIST, NPROBE, docs=kb.docs)
+            fv, fi = promoted.search(q0, K, nprobe=NLIST, **search_kw)
+            torch.cuda.synchronize()
+            t_full = time.perf_counter() - t0
+            ok, err = ranking_agrees((fv, fi), exact[exact_name].search(q0, K),
+                                     exact=onebit)
+            print(f"[ivf] {exact_name}.to_ivf({NLIST}) at nprobe = nlist "
+                  f"(L {promoted.lists.shape[1]}, {t_full:.1f} s with the "
+                  f"fit) vs exact search: max_abs_err {err:.3g}, "
+                  f"{'agrees' if ok else 'DIFFERS'}"
+                  f"{' bit for bit' if ok and onebit else ''}")
+            if not ok:
+                raise AssertionError(f"{name}: full probe differs from exact "
+                                     "search")
+            del built, ref, promoted
+            indexes[name] = loaded
+            torch.cuda.empty_cache()
+
+    # each index's own nprobe = nlist ranking is the recall reference
+    full = {name: _search_batches(index, queries, K, nprobe=NLIST,
+                                  **search_kw)[1]
+            for name, index in indexes.items()}
+    for index in indexes.values():            # warm-up, outside the count
+        for nprobe in NPROBES_TIMED:
+            index.search(q0, K, nprobe=nprobe, **search_kw)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    per_index = {}
+    for name, index in indexes.items():
+        before = launch_counts()
+        for nprobe in NPROBES_TIMED:
+            vals, ids, secs = _search_batches(index, queries, K,
+                                              nprobe=nprobe, **search_kw)
+            if vals.shape != (queries.shape[0], K) or \
+                    not bool(torch.isfinite(vals).all()) or \
+                    int(ids.min()) < 0 or int(ids.max()) >= args.n_docs:
+                raise AssertionError(f"{name}: malformed search output")
+            rp = r_precision_from_ids(ids, kb.relevant)
+            ms = sorted(x * 1e3 for x in secs)
+            p99 = ms[min(len(ms) - 1, round(0.99 * (len(ms) - 1)))]
+            print(f"[ivf] {name} nprobe {nprobe}: "
+                  f"{queries.shape[0] / sum(secs):.1f} qps, batch {BATCH} "
+                  f"p50 {statistics.median(ms):.3f} ms p99 {p99:.3f} ms, "
+                  f"recall@{K} vs nprobe=nlist "
+                  f"{recall_at_k(ids, full[name]):.4f}, R-precision "
+                  f"{rp:.4f} ({rp / rp_float:.4f} of float)")
+        after = launch_counts()
+        per_index[name] = {n: after[n] - before[n] for n in after}
+        print(f"[ivf] {name}: launches {per_index[name]}")
+        if per_index[name]["fused_ivf_topk"] < 1:
+            raise AssertionError(f"{name}: fused_ivf_topk never launched")
+    counts = launch_counts()
+    print(f"[ivf] launches over the IVF path: {counts}")
+    profile_batches(indexes, queries, nprobe=NPROBE, **search_kw)
     return counts
 
 
@@ -435,10 +731,14 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_environment()
     phase_build()
-    kernels = phase_kernels(card_rates(smi))
-    counts = phase_main_path(args)
+    rates = card_rates(smi)
+    kernels = phase_kernels(rates) + [phase_ivf_kernel(rates)]
+    kb = make_kb(args)
+    counts, exact, rp_float = phase_main_path(args, kb)
+    ivf_counts = phase_ivf(args, kb, exact, rp_float)
     for rec in kernels:
         rec["launches"] = counts[rec["name"]]
+    kernels[-1]["launches"] = ivf_counts["fused_ivf_topk"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,10 @@ from repro_torch.core.registry import (METHODS, TRANSFORMS, build_method,
                                        method_compression_ratio,
                                        pipeline_spec, register_transform,
                                        transform_spec)
+from repro_torch.core.rotation import LearnedRotation
 
 __all__ = [
-    "PCA", "moments", "CompressionPipeline",
+    "PCA", "moments", "CompressionPipeline", "LearnedRotation",
     "Center", "CenterNorm", "Normalize", "PreprocessSpec", "Transform",
     "ZScore",
     "FloatCast", "Int8Quantizer", "OneBitQuantizer", "compression_ratio",

@@ -19,32 +19,26 @@ from repro_torch.core.preprocess import (Center, CenterNorm, Normalize,
                                          Transform, ZScore)
 from repro_torch.core.quantization import (FloatCast, Int8Quantizer,
                                            OneBitQuantizer)
+from repro_torch.core.rotation import LearnedRotation
 
 METHODS = (
     "original", "pca", "pca_scaled",
     "fp16", "int8", "onebit", "onebit_offset0",
-    "pca_int8", "pca_onebit",
+    "pca_int8", "pca_onebit", "pca_rot_onebit",
 )
 
-_IVF_SLICE = "slice 2 of the port (IVF search)"
 _OFF_PATH_SLICE = "slice 6 of the port (off-path transforms)"
 
 #: names ``repro`` has and the port does not yet → the slice that adds them
-_LATER_METHODS = {
-    "pca_rot_onebit": _IVF_SLICE,
-    **{m: _OFF_PATH_SLICE for m in (
-        "gaussian_projection", "sparse_projection", "dim_drop",
-        "greedy_dim_drop", "ae_linear", "ae_full", "ae_shallow",
-        "ae_linear_l1", "ae_full_l1", "ae_shallow_l1",
-        "distance_learning", "contrastive")},
-}
-_LATER_TRANSFORMS = {
-    "LearnedRotation": _IVF_SLICE,
-    **{t: _OFF_PATH_SLICE for t in (
-        "DimensionDrop", "GreedyDimensionDrop", "GaussianProjection",
-        "SparseProjection", "Autoencoder", "SimilarityPreservingProjection",
-        "ContrastiveProjection")},
-}
+_LATER_METHODS = {m: _OFF_PATH_SLICE for m in (
+    "gaussian_projection", "sparse_projection", "dim_drop",
+    "greedy_dim_drop", "ae_linear", "ae_full", "ae_shallow",
+    "ae_linear_l1", "ae_full_l1", "ae_shallow_l1",
+    "distance_learning", "contrastive")}
+_LATER_TRANSFORMS = {t: _OFF_PATH_SLICE for t in (
+    "DimensionDrop", "GreedyDimensionDrop", "GaussianProjection",
+    "SparseProjection", "Autoencoder", "SimilarityPreservingProjection",
+    "ContrastiveProjection")}
 
 
 def _core_stages(name: str, dim: int) -> list[Transform]:
@@ -60,6 +54,10 @@ def _core_stages(name: str, dim: int) -> list[Transform]:
         "pca_onebit": lambda: [PCA(dim), OneBitQuantizer(offset=0.5)],
         # paper: PCA(128) + int8 = 24× compression
         "pca_int8": lambda: [PCA(dim), Int8Quantizer()],
+        # the same 100× storage as pca_onebit; an orthogonal rotation
+        # re-aims the sign grid after PCA (free at search time)
+        "pca_rot_onebit": lambda: [PCA(dim), LearnedRotation(),
+                                   OneBitQuantizer(offset=0.5)],
     }
     if name in table:
         return table[name]()
@@ -104,8 +102,8 @@ def register_transform(cls: type) -> type:
     return cls
 
 
-for _cls in (Center, CenterNorm, Normalize, ZScore, PCA, FloatCast,
-             Int8Quantizer, OneBitQuantizer):
+for _cls in (Center, CenterNorm, Normalize, ZScore, PCA, LearnedRotation,
+             FloatCast, Int8Quantizer, OneBitQuantizer):
     register_transform(_cls)
 
 

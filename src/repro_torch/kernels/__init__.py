@@ -11,20 +11,24 @@ at first use.
 - ``int8_ip``     : int8 index scoring, bf16(q⊙scale) × u8 with f32 sums.
 - ``binary_ip``   : 1-bit index scoring, XOR + popcount over packed words.
 - ``topk_blocks`` : per-block top-k, stage 1 of the exact two-stage top-k.
+- ``ivf_fused``   : IVF search, probed lists gathered, scored and ranked in
+                    one kernel (wrapper ``fused_ivf_topk``).
 """
 
 
-def launch_counts() -> dict[str, int]:
-    """{kernel name: launches so far} for every kernel wrapper."""
+def _wrappers():
     from repro_torch.kernels.binary_ip.kernel import binary_ip
     from repro_torch.kernels.int8_ip.kernel import int8_ip
+    from repro_torch.kernels.ivf_fused.kernel import fused_ivf_topk
     from repro_torch.kernels.topk_blocks.kernel import topk_blocks
-    return {f.__name__: f.launches for f in (int8_ip, binary_ip, topk_blocks)}
+    return (int8_ip, binary_ip, topk_blocks, fused_ivf_topk)
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel wrapper name: launches so far} for every kernel wrapper."""
+    return {f.__name__: f.launches for f in _wrappers()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.binary_ip.kernel import binary_ip
-    from repro_torch.kernels.int8_ip.kernel import int8_ip
-    from repro_torch.kernels.topk_blocks.kernel import topk_blocks
-    for f in (int8_ip, binary_ip, topk_blocks):
+    for f in _wrappers():
         f.launches = 0

@@ -42,6 +42,9 @@ SIGNATURES = {
     "binary_ip_launch": [_p, _p, _p, _i, _i, _i, _p],
     # (scores f32, vals f32, idx i32, n_q, n_d, k, block_d, n_blocks, stream)
     "topk_blocks_launch": [_p, _p, _p, _i, _i, _i, _i, _i, _p],
+    # (probes i32, q, storage, list ids i32, base f32, vals f32, ids i32,
+    #  n_q, nprobe, nlist, L, w, k, backend, stream)
+    "ivf_fused_launch": [_p] * 7 + [_i] * 7 + [_p],
 }
 
 

@@ -27,6 +27,30 @@ def _sign_sums_from_packed(packed: torch.Tensor, d: int) -> torch.Tensor:
     return 2 * pop - d
 
 
+def _query_signs(queries: torch.Tensor, n_words: int, d: int
+                 ) -> torch.Tensor:
+    """Float queries (only their signs matter) or packed int32 words →
+    (Q, 32·n_words) ±1 int8, padded with −1 as the encoder pads."""
+    if queries.dtype == torch.int32:
+        return unpack_bits(queries, d)
+    q_signs = torch.where(queries >= 0, 1, -1).to(torch.int8)
+    if q_signs.shape[-1] != d:
+        raise ValueError("query dim mismatch")
+    pad = n_words * 32 - d
+    if pad:
+        q_signs = F.pad(q_signs, (0, pad), value=-1)
+    return q_signs
+
+
+def _offset_terms(scores: torch.Tensor, q_signs: torch.Tensor,
+                  sum_d: torch.Tensor, d_packed: int,
+                  offset: float) -> torch.Tensor:
+    """Add the α ≠ 0.5 corrections; ``sum_d`` broadcasts against (Q, ·)."""
+    c = 0.5 - offset
+    sum_q = torch.sum(q_signs, dim=-1, dtype=torch.int32)
+    return scores + (c / 2.0) * (sum_q[:, None] + sum_d) + d_packed * c * c
+
+
 def binary_ip_scores(queries: torch.Tensor, docs_packed: torch.Tensor,
                      d: int, offset: float = 0.5,
                      use_kernel: bool = False) -> torch.Tensor:
@@ -35,24 +59,27 @@ def binary_ip_scores(queries: torch.Tensor, docs_packed: torch.Tensor,
     ``queries`` are floats (only their signs matter) or packed int32 words.
     Both backends give the same scores bit for bit (integer arithmetic).
     """
-    if queries.dtype == torch.int32:
-        q_signs = unpack_bits(queries, d)
-    else:
-        q_signs = torch.where(queries >= 0, 1, -1).to(torch.int8)
-        if q_signs.shape[-1] != d:
-            raise ValueError("query dim mismatch")
-        pad = docs_packed.shape[-1] * 32 - d
-        if pad:
-            q_signs = F.pad(q_signs, (0, pad), value=-1)
-
+    q_signs = _query_signs(queries, docs_packed.shape[-1], d)
     d_packed = docs_packed.shape[-1] * 32   # includes encoder padding
     dot = binary_ip if use_kernel else _ref.sign_dot_ref
     # scaled in place: the (Q, D) matrix is the largest buffer on the path
     scores = dot(q_signs, docs_packed).float().mul_(0.25)
-    c = 0.5 - offset
-    if c != 0.0:
-        sum_q = torch.sum(q_signs, dim=-1, dtype=torch.int32)
-        sum_d = _sign_sums_from_packed(docs_packed, d_packed)
-        scores = (scores + (c / 2.0) * (sum_q[:, None] + sum_d[None, :])
-                  + d_packed * c * c)
-    return scores
+    if offset == 0.5:
+        return scores
+    sum_d = _sign_sums_from_packed(docs_packed, d_packed)[None, :]
+    return _offset_terms(scores, q_signs, sum_d, d_packed, offset)
+
+
+def binary_ip_scores_gathered(queries: torch.Tensor, gathered: torch.Tensor,
+                              d: int, offset: float = 0.5) -> torch.Tensor:
+    """(Q, d) queries × (Q, C, d/32) packed words → (Q, C), each query
+    against its own candidate rows (the IVF streaming path).  Integer
+    arithmetic: the same bits as :func:`binary_ip_scores` either way."""
+    q_signs = _query_signs(queries, gathered.shape[-1], d)
+    d_packed = gathered.shape[-1] * 32
+    scores = _ref.sign_dot_gathered_ref(q_signs, gathered).float().mul_(0.25)
+    if offset == 0.5:
+        return scores
+    return _offset_terms(scores, q_signs,
+                         _sign_sums_from_packed(gathered, d_packed),
+                         d_packed, offset)

@@ -18,3 +18,12 @@ def sign_dot_ref(q_signs: torch.Tensor, docs_packed: torch.Tensor
     """(Q, d) ±1 int8 × (D, d/32) packed words → (Q, D) int32 sign dots."""
     signs = unpack_bits(docs_packed, q_signs.shape[-1])
     return (q_signs.float() @ signs.float().T).to(torch.int32)
+
+
+def sign_dot_gathered_ref(q_signs: torch.Tensor, words: torch.Tensor
+                          ) -> torch.Tensor:
+    """(Q, d) ±1 int8 × (Q, C, d/32) words → (Q, C) int32 sign dots, each
+    query against its own candidate rows."""
+    signs = unpack_bits(words, q_signs.shape[-1]).float()
+    return torch.matmul(signs, q_signs.float()[:, :, None])[..., 0] \
+        .to(torch.int32)

@@ -45,3 +45,27 @@ def int8_scores(queries: torch.Tensor, docs_u8: torch.Tensor,
         d2 = _doc_sq_norms(docs_u8, scale, zero)
         return -(q2 + d2[None, :] - 2.0 * ip)
     raise ValueError(sim)
+
+
+def int8_scores_gathered(queries: torch.Tensor, codes: torch.Tensor,
+                         scale: torch.Tensor, zero: torch.Tensor,
+                         sim: str = "ip", use_kernel: bool = False
+                         ) -> torch.Tensor:
+    """(Q, d) float queries × (Q, C, d) uint8 codes → (Q, C), each query
+    against its own candidate rows, in either numerics of
+    :func:`int8_scores` (computed in plain torch: the IVF streaming path)."""
+    queries = queries.float()
+    if use_kernel:
+        q_scaled = (queries * scale).to(torch.bfloat16).float()
+        ip = torch.matmul(codes.float(), q_scaled[:, :, None])[..., 0]
+        ip += (queries @ zero)[:, None]
+    else:
+        ip = torch.matmul(_ref.decode(codes, scale, zero),
+                          queries[:, :, None])[..., 0]
+    if sim == "ip":
+        return ip
+    if sim == "l2":
+        q2 = torch.sum(queries * queries, dim=-1, keepdim=True)
+        docs = _ref.decode(codes, scale, zero)
+        return -(q2 + torch.sum(docs * docs, dim=-1) - 2.0 * ip)
+    raise ValueError(sim)

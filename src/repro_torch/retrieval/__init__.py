@@ -1,4 +1,5 @@
-"""Dense retrieval substrate in PyTorch: exact top-k, metrics, artifacts.
+"""Dense retrieval substrate in PyTorch: exact and IVF top-k, metrics,
+artifacts.
 
 The declarative front door is :mod:`repro_torch.retrieval.api`::
 
@@ -11,6 +12,7 @@ from repro_torch.retrieval.api import (IndexSpec, ShardSpec, build_index,
                                        load_index, load_index_meta,
                                        save_index)
 from repro_torch.retrieval.index import CompressedIndex, DenseIndex
+from repro_torch.retrieval.ivf import IVFFlatIndex, IVFIndex
 from repro_torch.retrieval.rprecision import (r_precision,
                                               r_precision_from_ids,
                                               recall_at_k,
@@ -24,7 +26,7 @@ from repro_torch.retrieval.topk import (masked_topk_by_id, resolve_k,
 __all__ = [
     "IndexSpec", "ShardSpec", "build_index", "load_index",
     "load_index_meta", "save_index",
-    "CompressedIndex", "DenseIndex",
+    "CompressedIndex", "DenseIndex", "IVFFlatIndex", "IVFIndex",
     "Scorer", "get_scorer", "register_scorer",
     "scorer_for_pipeline", "scorer_names",
     "r_precision", "r_precision_from_ids", "recall_at_k",

@@ -1,21 +1,22 @@
 """One Index API: declarative specs, a build factory, ``.npz`` persistence.
 
-Counterpart of ``repro.retrieval.api`` for exact search:
+Counterpart of ``repro.retrieval.api`` for exact and IVF search:
 
 * :class:`IndexSpec` / :class:`ShardSpec` — frozen, JSON round-trippable
   recipes, with the same JSON as ``repro``'s (backends are written with
   ``repro``'s names, ``jnp``/``pallas``, and read back as the port's).
-* :func:`build_index` — registry → pipeline → scorer, for the plain
-  :class:`CompressedIndex` and the float :class:`DenseIndex`.  IVF,
-  sharded and mutable specs raise ``NotImplementedError`` naming the
-  slice of the port that adds them.
+* :func:`build_index` — registry → pipeline → scorer → IVF, for
+  :class:`CompressedIndex`, the float :class:`DenseIndex` and
+  :class:`IVFIndex` (``spec.ivf``).  Sharded and mutable specs raise
+  ``NotImplementedError`` naming the slice of the port that adds them.
 * :func:`save_index` / :func:`load_index` / :func:`load_index_meta` — the
   version-1 ``.npz`` artifact, read and written with numpy alone:
   ``__meta__`` is a 0-d JSON string (no pickle), ``pipeline:{i}:{key}``
   arrays hold each stage's state, ``storage`` the encoded documents (1-bit
-  words as uint32).  ``repro.retrieval.api.load_index`` reads what
+  words as uint32), and an IVF index adds ``centroids``, ``lists`` and
+  ``labels``.  ``repro.retrieval.api.load_index`` reads what
   :func:`save_index` writes, and :func:`load_index` reads ``repro``'s —
-  the way fitted state crosses between the packages.
+  the one way fitted state crosses between the packages.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.registry import (build_method, build_pipeline_from_spec,
                                        pipeline_spec)
 from repro_torch.retrieval.index import CompressedIndex, DenseIndex
+from repro_torch.retrieval.ivf import IVFFlatIndex, IVFIndex
 from repro_torch.retrieval.scorers import OneBitScorer
 from repro_torch.utils import (DeviceLike, backend_to_repro, check_backend,
                                resolve_device)
@@ -42,12 +44,10 @@ ARTIFACT_FORMAT = "repro-index"
 #: the one artifact version this slice reads and writes: immutable .npz
 ARTIFACT_VERSION = 1
 
-_IVF_SLICE = "slice 2 of the port (IVF search)"
 _MUTABLE_SLICE = "slice 4 of the port (mutable, tiered and served indexes)"
 _SHARD_SLICE = "slice 5 of the port (sharded search)"
 #: artifact kinds ``repro`` writes and the port cannot load yet
 _LATER_KINDS = {
-    "IVFIndex": _IVF_SLICE, "IVFFlatIndex": _IVF_SLICE,
     "SegmentedIndex": _MUTABLE_SLICE,
     "ShardedCompressedIndex": _SHARD_SLICE, "ShardedIVFIndex": _SHARD_SLICE,
 }
@@ -209,19 +209,28 @@ def build_index(spec: IndexSpec, docs, queries_sample=None, *,
                 device: DeviceLike = None):
     """Compose registry → pipeline → scorer on ``device`` (``None``: CUDA).
 
-    Returns a :class:`CompressedIndex`, or a :class:`DenseIndex` for
+    Returns an :class:`IVFIndex` for ``spec.ivf``, else a
+    :class:`CompressedIndex`, or a :class:`DenseIndex` for
     ``method="dense"``.  ``queries_sample`` feeds the two-population
     statistics.
     """
     if spec.shard is not None:
         raise NotImplementedError(f"sharded indexes wait for {_SHARD_SLICE}")
-    if spec.ivf is not None:
-        raise NotImplementedError(f"IVF indexes wait for {_IVF_SLICE}")
     if spec.mutable:
         raise NotImplementedError(f"mutable indexes wait for {_MUTABLE_SLICE}")
     dev = resolve_device(device)
     pipeline = spec.build_pipeline()
-    if pipeline is None:
+    if spec.ivf is not None:
+        nlist, nprobe = spec.ivf
+        idx = IVFIndex.build(docs, queries_sample, pipeline, nlist=nlist,
+                             nprobe=nprobe, sim=spec.sim,
+                             backend=spec.backend,
+                             kmeans_iters=spec.kmeans_iters,
+                             residual=spec.ivf_residual,
+                             kmeans_init=spec.kmeans_init,
+                             balanced=spec.balanced_lists, rng=rng,
+                             device=dev)
+    elif pipeline is None:
         idx = DenseIndex(docs, sim=spec.sim, device=dev,
                          backend=spec.backend)
     else:
@@ -263,7 +272,7 @@ def _gather_pipeline_sd(data, types: Sequence[str],
 def save_index(index, path: str) -> None:
     """Write the version-1 ``.npz`` artifact (spec + state) — readable by
     ``repro.retrieval.api.load_index`` and by :func:`load_index`."""
-    if not isinstance(index, (DenseIndex, CompressedIndex)):
+    if not isinstance(index, (DenseIndex, CompressedIndex, IVFIndex)):
         raise TypeError(f"don't know how to save {type(index).__name__}")
     arrays: dict[str, np.ndarray] = {}
     meta: dict[str, Any] = {
@@ -294,6 +303,20 @@ def save_index(index, path: str) -> None:
             "version": int(sd["version"]),
             "scorer_extra": sd["scorer_extra"],
         }
+        if isinstance(index, IVFIndex):
+            arrays["centroids"] = _numpy(sd["centroids"])
+            arrays["lists"] = _numpy(sd["lists"])
+            if sd["labels"] is not None:
+                arrays["labels"] = np.asarray(sd["labels"])
+            meta["index"].update({
+                "nlist": int(sd["nlist"]),
+                "nlist_requested": int(sd["nlist_requested"]),
+                "nprobe": int(sd["nprobe"]),
+                "residual": bool(sd["residual"]),
+                "kmeans_init": str(sd["kmeans_init"]),
+                "balanced": bool(sd["balanced"]),
+                "kmeans_iters": int(index.kmeans_iters),
+            })
     arrays["__meta__"] = np.asarray(json.dumps(meta, sort_keys=True))
     np.savez(path, **arrays)
 
@@ -354,6 +377,8 @@ def load_index(path: str, *, backend: Optional[str] = None,
                 "scorer_extra": m.get("scorer_extra", {}),
                 "n_docs": m["n_docs"], "dim": m["dim"],
                 "version": m.get("version", 0)})
+        elif kind in ("IVFIndex", "IVFFlatIndex"):
+            idx = _rebuild_ivf(meta, data, backend, kind, dev)
         elif kind in _LATER_KINDS:
             raise NotImplementedError(
                 f"{path} holds a {kind}, which waits for "
@@ -366,6 +391,42 @@ def load_index(path: str, *, backend: Optional[str] = None,
         raise TypeError(f"{path} holds a {kind}, expected "
                         f"{expect.__name__} — use api.load_index for "
                         "kind-dispatching loads")
+    return idx
+
+
+def _rebuild_ivf(meta: dict, data, backend: Optional[str], kind: str,
+                 device: torch.device) -> IVFIndex:
+    """The IVF index an artifact describes, with its state loaded."""
+    m = meta["index"]
+    if kind == "IVFFlatIndex":
+        idx = IVFFlatIndex(nlist=m["nlist_requested"], nprobe=m["nprobe"],
+                           sim=m["sim"], kmeans_iters=m["kmeans_iters"],
+                           device=device)
+    else:
+        pipeline = (build_pipeline_from_spec(meta["stages"])
+                    if meta["stages"] else CompressionPipeline([]))
+        idx = IVFIndex(pipeline, nlist=m["nlist_requested"],
+                       nprobe=m["nprobe"], sim=m["sim"],
+                       backend=backend or m["backend"],
+                       kmeans_iters=m["kmeans_iters"],
+                       residual=bool(m.get("residual", False)),
+                       kmeans_init=str(m.get("kmeans_init", "random")),
+                       balanced=bool(m.get("balanced", False)),
+                       device=device)
+    idx.load_state_dict({
+        "pipeline": _gather_pipeline_sd(data, [n for n, _ in meta["stages"]],
+                                        meta["stage_fitted"]),
+        "storage": data["storage"],
+        "centroids": data["centroids"],
+        "lists": data["lists"],
+        "labels": data["labels"] if "labels" in data.files else None,
+        "scorer_extra": m.get("scorer_extra", {}),
+        "nlist": m["nlist"], "nlist_requested": m["nlist_requested"],
+        "nprobe": m["nprobe"], "n_docs": m["n_docs"], "dim": m["dim"],
+        "residual": bool(m.get("residual", False)),
+        "kmeans_init": str(m.get("kmeans_init", "random")),
+        "balanced": bool(m.get("balanced", False)),
+        "version": m.get("version", 0)})
     return idx
 
 

@@ -1,11 +1,11 @@
 """Dense and compressed KB indexes (exact search).
 
-Counterpart of ``repro.retrieval.index`` (IVF promotion, ``to_ivf``, waits
-for slice 2 of the port).  :class:`DenseIndex` is the uncompressed
-baseline; :class:`CompressedIndex` applies a fitted
+Counterpart of ``repro.retrieval.index``.  :class:`DenseIndex` is the
+uncompressed baseline; :class:`CompressedIndex` applies a fitted
 :class:`~repro_torch.core.pipeline.CompressionPipeline` and stores the
 encoded representation (fp16 / uint8 codes / packed sign words), scored
-through the :mod:`~repro_torch.retrieval.scorers` backends.
+through the :mod:`~repro_torch.retrieval.scorers` backends, and promotes
+to IVF search over the same storage with :meth:`CompressedIndex.to_ivf`.
 
 Both live on one device, given at construction (``None`` means CUDA;
 without a CUDA device pass ``device="cpu"``).  Quantized search runs in
@@ -16,6 +16,7 @@ the largest buffer.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
@@ -34,7 +35,7 @@ from repro_torch.utils import (DeviceLike, check_backend, chunked,
 QUERY_CHUNK = 1024
 
 
-def _storage_tensor(x, device: torch.device) -> torch.Tensor:
+def storage_tensor(x, device: torch.device) -> torch.Tensor:
     """Storage from a tensor or a numpy array (``repro``'s uint32 words
     become int32 with the same bytes)."""
     if not isinstance(x, torch.Tensor) and getattr(x, "dtype", None) == "uint32":
@@ -164,6 +165,43 @@ class CompressedIndex:
             self._decoded_cache = self.scorer.decode(self.storage)
         return self._decoded_cache
 
+    def to_ivf(self, nlist: int = 200, nprobe: int = 100, docs=None,
+               kmeans_iters: int = 15, rng: Optional[torch.Generator] = None,
+               train_size: int = 100_000):
+        """Promote this index to IVF search over the *same* storage.
+
+        The fitted stages and the storage are shared, the scorer is
+        deep-copied (``encode_docs`` mutates it).  The router is fitted on
+        the float decode of the storage, or on ``docs`` (the indexed
+        corpus, in order) when given.  A later ``add`` here makes the IVF
+        view's ``search`` raise.
+        """
+        from repro_torch.retrieval.ivf import IVFIndex
+
+        if self.storage is None:
+            raise ValueError("index is empty — add docs before to_ivf")
+        ivf = IVFIndex(self.pipeline, nlist=nlist, nprobe=nprobe,
+                       sim=self.sim, backend=self.backend,
+                       kmeans_iters=kmeans_iters, device=self.device)
+        ivf.float_stages = self.float_stages
+        ivf.scorer = copy.deepcopy(self.scorer)
+        if docs is not None:
+            x_route = apply_float_stages(self.float_stages,
+                                         as_tensor(docs, self.device), "docs")
+            if int(x_route.shape[0]) != self._n_docs:
+                raise ValueError("docs must be the indexed corpus "
+                                 f"({self._n_docs} rows), got "
+                                 f"{int(x_route.shape[0])}")
+        elif self.scorer.name in ("float", "fp16"):
+            x_route = self.decoded_docs()   # exact search reuses this cache
+        else:
+            # a routing temporary, not a cache: int8/1-bit search never
+            # reads the float view
+            x_route = self.scorer.decode(self.storage)
+        ivf._install(self.storage, x_route, rng=rng, train_size=train_size)
+        ivf._source = (self, self._version)
+        return ivf
+
     def search(self, queries, k: int, doc_chunk: int = 131072
                ) -> tuple[torch.Tensor, torch.Tensor]:
         k = resolve_k(k, self._n_docs)
@@ -199,7 +237,7 @@ class CompressedIndex:
         self.pipeline.load_state_dict(sd["pipeline"], self.device)
         # the scorer holds the same quantizer object as the pipeline's
         # trailing stage, so its codebooks are now loaded too
-        self.storage = _storage_tensor(sd["storage"], self.device)
+        self.storage = storage_tensor(sd["storage"], self.device)
         self.scorer.load_extra_state(sd.get("scorer_extra", {}))
         self._n_docs = int(sd["n_docs"])
         self._dim = int(sd["dim"])

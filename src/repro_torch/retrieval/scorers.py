@@ -20,7 +20,7 @@ from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.preprocess import Transform
 from repro_torch.core.quantization import (FloatCast, Int8Quantizer,
                                            OneBitQuantizer)
-from repro_torch.retrieval.topk import similarity
+from repro_torch.retrieval.topk import similarity, similarity_gathered
 from repro_torch.utils import check_backend, use_kernel
 
 
@@ -50,6 +50,14 @@ class Scorer:
     def scores(self, q: torch.Tensor, storage: torch.Tensor,
                params: Optional[dict] = None) -> torch.Tensor:
         return similarity(q, storage, self.sim)
+
+    def scores_gathered(self, q: torch.Tensor, gathered: torch.Tensor,
+                        params: Optional[dict] = None) -> torch.Tensor:
+        """(Q, d) × (Q, C, w) → (Q, C): each query against its own
+        candidate rows (IVF's gathered lists), with the numerics of
+        :meth:`scores`.  ``repro`` vmaps ``scores`` over the queries; here
+        the batch dimension is written out."""
+        return similarity_gathered(q, self.decode(gathered), self.sim)
 
     def extra_state(self) -> dict:
         """Scorer-owned scalars outside the quantizer's state (artifact
@@ -110,6 +118,13 @@ class Int8Scorer(Scorer):
                                     zero=p["zero"], sim=self.sim,
                                     use_kernel=self.use_kernel(storage))
 
+    def scores_gathered(self, q, gathered, params=None):
+        from repro_torch.kernels.int8_ip import ops as int8_ops
+        p = params if params is not None else self.params()
+        return int8_ops.int8_scores_gathered(
+            q, gathered, scale=p["scale"], zero=p["zero"], sim=self.sim,
+            use_kernel=self.use_kernel(gathered))
+
     def decode(self, storage):
         return self.quantizer.decode(storage)
 
@@ -153,6 +168,14 @@ class OneBitScorer(Scorer):
         return binary_ops.binary_ip_scores(
             q, storage, self.dim, offset=self.quantizer.offset,
             use_kernel=self.use_kernel(storage))
+
+    def scores_gathered(self, q, gathered, params=None):
+        from repro_torch.kernels.binary_ip import ops as binary_ops
+        if self.dim is None:
+            raise ValueError("OneBitScorer.dim unset — encode_docs first or "
+                             "pass dim= at construction")
+        return binary_ops.binary_ip_scores_gathered(
+            q, gathered, self.dim, offset=self.quantizer.offset)
 
     def decode(self, storage):
         return self.quantizer.decode(storage, self.dim)

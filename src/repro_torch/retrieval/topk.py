@@ -129,6 +129,25 @@ def similarity(queries: torch.Tensor, docs: torch.Tensor,
     raise ValueError(f"unknown similarity {sim!r}")
 
 
+def similarity_gathered(queries: torch.Tensor, docs: torch.Tensor,
+                        sim: str) -> torch.Tensor:
+    """(Q, d) × (Q, C, d) → (Q, C): each query against its own candidate
+    rows (IVF's gathered lists); the batched form of :func:`similarity`."""
+    if sim == "cos":
+        queries = queries / (torch.linalg.vector_norm(
+            queries, dim=-1, keepdim=True) + 1e-12)
+        docs = docs / (torch.linalg.vector_norm(docs, dim=-1,
+                                                keepdim=True) + 1e-12)
+    ip = torch.matmul(docs, queries[:, :, None])[..., 0]
+    if sim in ("ip", "cos"):
+        return ip
+    if sim == "l2":
+        q2 = torch.sum(queries * queries, dim=-1, keepdim=True)
+        d2 = torch.sum(docs * docs, dim=-1)
+        return -(q2 + d2 - 2.0 * ip)
+    raise ValueError(f"unknown similarity {sim!r}")
+
+
 def merge_topk(vals_a, idx_a, vals_b, idx_b, k):
     """Merge two top-k candidate sets; equal scores keep earlier entries
     first (``a`` before ``b``), as ``lax.top_k`` does."""

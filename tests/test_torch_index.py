@@ -200,19 +200,21 @@ def test_load_index_meta_matches_repro(kb, tmp_path):
 
 def test_later_slices_raise_not_implemented(kb, tmp_path):
     docs = np.asarray(kb.docs)
-    for kw in (dict(ivf=(8, 2)), dict(mutable=True),
-               dict(shard=p_api.ShardSpec())):
+    for kw in (dict(mutable=True), dict(shard=p_api.ShardSpec())):
         with pytest.raises(NotImplementedError, match="slice"):
             p_api.build_index(p_api.IndexSpec(method="pca_int8", dim=16,
                                               post=False, **kw),
                               docs, device="cpu")
-    ivf = r_api.build_index(r_api.IndexSpec(method="pca_int8", dim=16,
-                                            post=False, ivf=(8, 2)),
+    # IVF builds and loads since slice 2
+    spec = p_api.IndexSpec(method="pca_int8", dim=16, post=False, ivf=(8, 2))
+    built = p_api.build_index(spec, docs, device="cpu")
+    ivf = r_api.build_index(r_api.IndexSpec.from_json(spec.to_json()),
                             kb.docs, kb.queries)
     path = str(tmp_path / "ivf.npz")
     ivf.save(path)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        p_api.load_index(path, device="cpu")
+    loaded = p_api.load_index(path, device="cpu")
+    assert type(loaded) is type(built) and loaded.spec == spec
+    assert loaded.search(docs[:3], 4)[1].shape == (3, 4)
     with pytest.raises(TypeError):
         p_api.save_index(object(), str(tmp_path / "x.npz"))
 
@@ -263,7 +265,7 @@ def test_port_imports_neither_jax_nor_repro():
 def test_kernel_sources_sit_beside_the_package():
     csrc = REPO / "src" / "repro_torch" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
-        "binary_ip.cu", "int8_ip.cu", "topk_blocks.cu"]
+        "binary_ip.cu", "int8_ip.cu", "ivf_fused.cu", "topk_blocks.cu"]
     for src in csrc.glob("*.cu"):
         text = src.read_text()
         assert "src/repro/kernels/" in text and "Bound on an H100" in text

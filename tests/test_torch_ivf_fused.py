@@ -1,0 +1,172 @@
+"""The fused IVF top-k: the port's plain version against ``repro``'s kernel.
+
+The same seeded numpy inputs (list-major storage with −1 pads and an
+all-pad list, distinct probes per query, float queries) go through
+``repro``'s ``fused_ivf_topk(use_pallas=True)`` — the Pallas kernel in
+interpret mode, as ``tests/test_ivf_fused.py`` runs it — and through the
+port's ``ops.fused_ivf_topk`` on CPU tensors, which runs the plain version
+the CUDA kernel is held against on the card.
+
+Bars: 1-bit scores are 0.25 × integer sign dots, so ids and score bits
+are equal.  float, fp16 and int8 use the same numerics on both sides
+(int8 as bf16 q⊙scale × u8, each product exact in f32), so only the order
+of the f32 sums differs: values within 1e-5·max|v|, and ids equal at
+every rank whose neighbouring values differ by more than that.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.ivf_fused import ops as r_ops  # noqa: E402
+from repro_torch.core.quantization import words_from_numpy  # noqa: E402
+from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels.ivf_fused import ops as p_ops  # noqa: E402
+from repro_torch.kernels.ivf_fused.kernel import (MAX_K,  # noqa: E402
+                                                  fused_ivf_topk)
+from repro_torch.kernels.ivf_fused.ref import BACKENDS  # noqa: E402
+
+NLIST, L, DIM, Q = 24, 40, 48, 12
+
+
+def _case(backend, nprobe, with_base, seed=0):
+    """Seeded list-major inputs: numpy for repro, tensors for the port."""
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(NLIST * L).astype(np.int32).reshape(NLIST, L)
+    ids[rng.random((NLIST, L)) < 0.2] = -1          # ragged lists
+    ids[3] = -1                                      # an all-pad list
+    ids = np.sort(np.where(ids < 0, NLIST * L, ids), axis=1)
+    ids[ids == NLIST * L] = -1                       # pads at the tail
+    q = rng.standard_normal((Q, DIM)).astype(np.float32)
+    params = {}
+    if backend == "float":
+        store = rng.standard_normal((NLIST, L, DIM)).astype(np.float32)
+    elif backend == "fp16":
+        store = rng.standard_normal((NLIST, L, DIM)).astype(np.float16)
+    elif backend == "int8":
+        store = rng.integers(0, 256, (NLIST, L, DIM)).astype(np.uint8)
+        params = {"scale": rng.uniform(0.001, 0.02, DIM).astype(np.float32),
+                  "zero": rng.uniform(-1, 0, DIM).astype(np.float32)}
+    else:   # 45 dims → 2 words: the query signs are padded with −1
+        q = q[:, :45]
+        store = rng.integers(0, 2**32, (NLIST, L, 2),
+                             dtype=np.uint64).astype(np.uint32)
+    store[ids < 0] = 0
+    probes = np.stack([rng.permutation(NLIST)[:nprobe]
+                       for _ in range(Q)]).astype(np.int32)
+    extra = (rng.standard_normal((Q, nprobe)).astype(np.float32)
+             if with_base else None)
+    return q, store, ids, probes, params, extra
+
+
+def _port_inputs(q, store, ids, probes, params, extra):
+    to = torch.from_numpy
+    store_t = words_from_numpy(store) if store.dtype == np.uint32 \
+        else to(store)
+    return (to(probes), to(q), store_t, to(ids),
+            {k: to(v) for k, v in params.items()},
+            to(extra) if extra is not None else None)
+
+
+def _repro(backend, k, q, store, ids, probes, params, extra):
+    v, i = r_ops.fused_ivf_topk(
+        jnp.asarray(probes), jnp.asarray(q), jnp.asarray(store),
+        jnp.asarray(ids), k, backend,
+        params={n: jnp.asarray(a) for n, a in params.items()},
+        extra_base=None if extra is None else jnp.asarray(extra),
+        use_pallas=True)
+    return np.asarray(v), np.asarray(i)
+
+
+def _port(backend, k, q, store, ids, probes, params, extra):
+    probes_t, q_t, store_t, ids_t, params_t, extra_t = _port_inputs(
+        q, store, ids, probes, params, extra)
+    v, i = p_ops.fused_ivf_topk(probes_t, q_t, store_t, ids_t, k, backend,
+                                params=params_t, extra_base=extra_t)
+    return v.numpy(), i.numpy()
+
+
+def assert_same_ranking(got, want, exact):
+    """Exact: ids and value bits equal.  Otherwise values within
+    1e-5·max|v| and ids equal wherever the wanted neighbours are apart."""
+    (gv, gi), (wv, wi) = got, want
+    assert gv.shape == wv.shape and gi.shape == wi.shape
+    np.testing.assert_array_equal(np.isfinite(gv), np.isfinite(wv))
+    if exact:
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gv.view(np.int32), wv.view(np.int32))
+        return
+    fin = np.isfinite(wv)
+    tol = 1e-5 * np.abs(wv[fin]).max()
+    assert np.abs(gv[fin] - wv[fin]).max() <= tol
+    np.testing.assert_array_equal(gi[~fin], wi[~fin])
+    gap = np.full(wv.shape, np.inf)
+    d = np.abs(np.diff(np.where(fin, wv, 0), axis=1))
+    gap[:, 1:] = np.minimum(gap[:, 1:], d)
+    gap[:, :-1] = np.minimum(gap[:, :-1], d)
+    apart = fin & (gap > tol)
+    np.testing.assert_array_equal(gi[apart], wi[apart])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("nprobe", [1, 5, 24])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_plain_version_matches_repro_pallas(backend, nprobe, with_base):
+    case = _case(backend, nprobe, with_base)
+    assert_same_ranking(_port(backend, 10, *case),
+                        _repro(backend, 10, *case),
+                        exact=backend == "onebit")
+
+
+@pytest.mark.parametrize("backend", ["int8", "onebit"])
+def test_k_beyond_the_reachable_candidates_pads_the_tail(backend):
+    """Two probed lists hold < 100 rows: the tail is (−inf, −1), as
+    ``repro`` pads it."""
+    case = _case(backend, 2, True, seed=3)
+    got = _port(backend, 100, *case)
+    assert_same_ranking(got, _repro(backend, 100, *case),
+                        exact=backend == "onebit")
+    assert (got[1][:, -1] == -1).all() and np.isneginf(got[0][:, -1]).all()
+
+
+def test_prepare_queries_matches_repro():
+    q, _, _, _, params, _ = _case("int8", 1, False)
+    qe, base = p_ops.prepare_queries(
+        torch.from_numpy(q), "int8",
+        {k: torch.from_numpy(v) for k, v in params.items()})
+    rqe, rbase = r_ops.prepare_queries(
+        jnp.asarray(q), "int8", {k: jnp.asarray(v) for k, v in params.items()})
+    np.testing.assert_array_equal(qe.float().numpy(),
+                                  np.asarray(rqe.astype(jnp.float32)))
+    np.testing.assert_allclose(base.numpy(), np.asarray(rbase), rtol=1e-5,
+                               atol=1e-6)
+    signs, _ = p_ops.prepare_queries(torch.from_numpy(q[:, :45]), "onebit",
+                                     {}, packed_width=2)
+    rsigns, _ = r_ops.prepare_queries(jnp.asarray(q[:, :45]), "onebit", {},
+                                      packed_width=2)
+    np.testing.assert_array_equal(signs.numpy(), np.asarray(rsigns))
+    with pytest.raises(ValueError, match="packed_width"):
+        p_ops.prepare_queries(torch.from_numpy(q), "onebit", {})
+
+
+def test_wrapper_checks_and_cpu_launches_do_not_count():
+    q, store, ids, probes, params, _ = _case("float", 3, False)
+    probes_t, q_t, store_t, ids_t, _, _ = _port_inputs(
+        q, store, ids, probes, params, None)
+    base = torch.zeros(probes_t.shape)
+    before = launch_counts()
+    fused_ivf_topk(probes_t, q_t, store_t, ids_t, base, 5, "float")
+    fused_ivf_topk(probes_t, q_t, store_t, ids_t, base, MAX_K + 1, "float")
+    assert launch_counts() == before
+    with pytest.raises(TypeError):
+        fused_ivf_topk(probes_t.long(), q_t, store_t, ids_t, base, 5, "float")
+    with pytest.raises(TypeError):
+        fused_ivf_topk(probes_t, q_t, store_t, ids_t, base, 5, "fp16")
+    with pytest.raises(ValueError, match="shapes"):
+        fused_ivf_topk(probes_t, q_t[:, :7], store_t, ids_t, base, 5, "float")
+    with pytest.raises(ValueError, match="backend"):
+        fused_ivf_topk(probes_t, q_t, store_t, ids_t, base, 5, "int4")
+    with pytest.raises(ValueError, match="k must"):
+        fused_ivf_topk(probes_t, q_t, store_t, ids_t, base, 0, "float")
