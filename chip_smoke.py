@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's exact and IVF search paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's exact, IVF and mutable paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-docs 1000000] [--n-queries 2048] [--seed 0]
 
@@ -9,17 +9,25 @@ Phases, each printed as it runs:
 2. build — nvcc compiles ``src/repro_torch/csrc/*.cu`` for sm_90a into
    ``build/`` (one process per source, in parallel).
 3. kernels — each Hopper kernel (int8_ip, binary_ip, topk_blocks,
-   fused_ivf_topk) runs on the card at the main path's shapes (Q=256,
-   D=1M; d=128 int8, 8 words 1-bit; top-k at k=10 and k=100; IVF with
-   nlist 1024, lists of 1221 rows, 64 probes) and is held against its
-   plain PyTorch version on the same inputs: binary_ip, topk_blocks and
-   1-bit IVF exactly, the f32 sums of int8_ip and float/fp16/int8 IVF to
-   atol = 1e-5·max|plain| (summation order), IVF ids equal wherever the
-   plain values' neighbours lie further apart.  Timed with CUDA events
+   fused_ivf_topk, fused_quantize) runs on the card at the main path's
+   shapes (Q=256, D=1M; d=128 int8, 8 words 1-bit; top-k at k=10 and
+   k=100, and 1,010 as an exact main probed past 1,000 tombstones; IVF
+   with nlist 1024, lists of 1221 rows, 64 probes, k=10, k=1025/2048
+   above the shared-memory top-k, and int8 at k=16,384 and 282,778, the
+   deepest probe of the seg_ivf_24x cell before it needs a compaction;
+   the encode at (1M, 768) → 128, and ragged widths up to 384 outputs)
+   and is held against its plain PyTorch version on the same inputs:
+   binary_ip, topk_blocks and 1-bit IVF exactly, the f32 sums of int8_ip
+   and float/fp16/int8 IVF to atol = 1e-5·max|plain| (summation order),
+   IVF ids equal wherever the plain values' neighbours lie further apart,
+   fused_quantize codes within 1 on < 1% (repro's bar) and each row's
+   codes independent of the batch (bit for bit).  Timed with CUDA events
    beside the plain version, one PyTorch library call (``library_ms``,
    used nowhere in the port; none gathers, scores and ranks per probe, so
-   null for IVF) and the card's bound.
-4. main path — a synthetic DPR-like KB (768-dim f32, ``--n-docs`` docs)
+   null for IVF; the product alone for fused_quantize) and the card's
+   bound.
+4. main path — a synthetic DPR-like KB (768-dim f32, ``--n-docs`` docs;
+   both KBs are made on the host in worker threads while phases 2–3 run)
    indexed with the paper's 24× recipe (PCA-128 + int8) and 100× recipe
    (PCA-245 + 1-bit) plus a float baseline, through ``build_index``;
    each index is saved, loaded back and must rank bit-identically; then
@@ -39,7 +47,20 @@ Phases, each printed as it runs:
    of 256 at nprobe 16, 64 and 256 (qps, p50/p99, recall@10 against
    nprobe = nlist, R-precision's share of float), with the launch counts
    set to 0 before and read after; one batch per index is traced.
-6. the last two lines: ``{"kernels": [...]}`` and the device line.
+6. mutable — a second KB of 1M + 131,072 docs: the first 1M are the
+   main, the rest arrive as 8 adds of 16,384.  ``seg_24x_post`` (the
+   paper's pre+post-normalized 24x recipe, encoded by fused_quantize on
+   the build and every add; 100 main and 100 delta deletes) and
+   ``seg_ivf_24x`` (the IVF 24x recipe; 1,500 main deletes, so the main is
+   probed 1,510 deep) are searched in batches of 256 on the main alone,
+   after the adds and after the deletes (nprobe 16, 64, 256 for IVF),
+   with the launch counts set to 0 before and read after.  Then each is
+   held against an equivalent index over the surviving rows (a fresh
+   build: ids and score bits equal; one IVF index with the same centroids:
+   ids equal), through ``compact()`` and a v2 save/load; the fused encode
+   against the staged plain encode on the card; R-precision's share of
+   float; one batch per index traced.
+7. the last two lines: ``{"kernels": [...]}`` and the device line.
 
 Any failure raises before the last line, and the exit code is non-zero.
 """
@@ -54,16 +75,22 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.kernels import (_build, launch_counts,  # noqa: E402
                                  reset_launch_counts)
 from repro_torch.kernels.binary_ip.kernel import binary_ip  # noqa: E402
 from repro_torch.kernels.binary_ip.ref import sign_dot_ref  # noqa: E402
+from repro_torch.kernels.fused_quantize.kernel import (  # noqa: E402
+    fused_quantize)
+from repro_torch.kernels.fused_quantize.ref import (  # noqa: E402
+    fused_quantize_ref)
 from repro_torch.kernels.int8_ip.kernel import int8_ip  # noqa: E402
 from repro_torch.kernels.int8_ip.ref import int8_ip_ref  # noqa: E402
 from repro_torch.kernels.ivf_fused.kernel import (  # noqa: E402
@@ -79,6 +106,16 @@ BATCH, K = 256, 10
 #: IVF at 1M docs: nlist ≈ √1M, the balanced cap's longest list, nprobe
 NLIST, L_MAIN, NPROBE = 1024, 1221, 64
 NPROBES_TIMED = (16, 64, 256)
+#: fused_ivf_topk above MAX_K: a segmented IVF main is probed k + #dead deep
+LARGE_KS = (1025, 2048)
+#: the probe depth's growth with #dead(main), int8 only: 16,384, and the
+#: deepest probe of the seg_ivf_24x cell before needs_compaction() fires
+#: (tombstones ≤ 25% of its 1,131,072 rows: #dead 282,768)
+GROWTH_KS = (16_384, 10 + 282_768)
+#: topk_blocks at #dead(main) = 1,000 (the exact main probed k + #dead)
+TOPK_DEEP = 1_010
+#: the mutable phase: live adds on top of the main
+N_ADDS, ADD_ROWS = 8, 16_384
 
 #: name fragment → (bytes/s, bf16 FLOP/s, int8 OP/s, f32 FLOP/s), dense
 #: rates from NVIDIA's data sheets; the SXM part is the default
@@ -291,18 +328,32 @@ def phase_kernels(rates) -> list[dict]:
         if k == K:
             entry = rec
     out.append(entry)
-    del normal, tie_scores
+    # the exact main probed 1,010 deep (#dead(main) = 1,000): two stages
+    # against the full-row top-k, and the stage-1 time
+    bd = default_block_d(TOPK_DEEP)
+    fv, fi = streaming_topk(normal, TOPK_DEEP, use_kernel=True)
+    rv, ri = streaming_topk(normal, TOPK_DEEP, use_kernel=False)
+    if not (torch.equal(fv, rv) and torch.equal(fi, ri)):
+        raise AssertionError(f"streaming_topk k={TOPK_DEEP} disagrees with "
+                             "the full-row top-k")
+    entry[f"k{TOPK_DEEP}_ms"] = cuda_ms(
+        lambda: topk_blocks(normal, TOPK_DEEP, bd), 1)
+    print(f"[kernel] topk_blocks (256, 1M) k={TOPK_DEEP} block_d={bd}: two "
+          f"stages exact; stage 1 {entry[f'k{TOPK_DEEP}_ms']:.3f} ms")
+    del normal, tie_scores, fv, fi, rv, ri
     for rec in out[:2]:
         print(f"[kernel] {rec['name']}: {json.dumps(rec)}")
     torch.cuda.empty_cache()
     return out
 
 
-def ranking_agrees(got, want, exact: bool) -> tuple[bool, float]:
+def ranking_agrees(got, want, exact: bool, cut=None) -> tuple[bool, float]:
     """Do two (Q, k) rankings agree?  ``exact``: ids and value bits equal.
     Otherwise values within 1e-5·max|want| (f32 summation order), and ids
     equal at every rank whose neighbouring wanted values lie further apart
-    than that, and wherever the wanted value is −inf."""
+    than that, and wherever the wanted value is −inf.  ``cut`` (Q,), the
+    wanted (k+1)-th value, is the last rank's neighbour beyond the top-k:
+    a near-tie across the cut may keep either row in the last slot."""
     (gv, gi), (wv, wi) = got, want
     fin = torch.isfinite(wv)
     if gi.shape != wi.shape or not torch.equal(torch.isfinite(gv), fin):
@@ -318,8 +369,20 @@ def ranking_agrees(got, want, exact: bool) -> tuple[bool, float]:
     gap = torch.full_like(wv, float("inf"))
     gap[:, 1:] = torch.minimum(gap[:, 1:], d)
     gap[:, :-1] = torch.minimum(gap[:, :-1], d)
+    if cut is not None:
+        gap[:, -1] = torch.minimum(
+            gap[:, -1], (wv[:, -1] - cut).abs().nan_to_num(nan=float("inf")))
     apart = fin & (gap > tol)
-    ok = (err <= tol and torch.equal(gi[apart], wi[apart])
+    bad = apart & (gi != wi)
+    if bool(bad.any()):
+        rows, cols = torch.nonzero(bad, as_tuple=True)
+        print(f"[check] {int(bad.sum())} ranks differ where apart (tol "
+              f"{tol:.3g}); first: " + "; ".join(
+                  f"q{int(r)} rank {int(c)} got ({float(gv[r, c]):.6g}, "
+                  f"{int(gi[r, c])}) want ({float(wv[r, c]):.6g}, "
+                  f"{int(wi[r, c])}) gap {float(gap[r, c]):.3g}"
+                  for r, c in zip(rows[:4], cols[:4])))
+    ok = (err <= tol and not bool(bad.any())
           and torch.equal(gi[~fin], wi[~fin]))
     return ok, err
 
@@ -365,7 +428,8 @@ def check_ivf_ragged(gen) -> None:
     one-row lists, odd widths."""
     cases = [  # (n_q, nlist, L, nprobe, k, dim)
         (5, 64, 300, 1, 10, 128), (7, 64, 300, 5, 100, 96),
-        (3, 16, 50, 2, MAX_K, 64), (4, 8, 5000, 3, 10, 160),
+        (3, 16, 50, 2, MAX_K, 64), (5, 16, 300, 8, MAX_K + 76, 96),
+        (4, 8, 5000, 3, 10, 160),
         (9, 32, 1, 32, 20, 32), (2, 16, 77, 16, 300, 288)]
     for n_q, nlist, max_len, nprobe, k, dim in cases:
         for backend in ("float", "fp16", "int8", "onebit"):
@@ -383,7 +447,61 @@ def check_ivf_ragged(gen) -> None:
                 raise AssertionError("unreachable tail is not (-inf, -1)")
     torch.cuda.synchronize()
     print("[kernel] fused_ivf_topk ragged: nprobe 1, k 100, k > reachable, "
-          f"k = {MAX_K}, L > tile, L = 1, odd widths: all agree")
+          f"k = {MAX_K} and {MAX_K + 76}, L > tile, L = 1, odd widths: all "
+          "agree")
+
+
+def check_ivf_large_k(gen) -> dict:
+    """fused_ivf_topk above MAX_K (running top-k in a global scratch) at
+    the main path's shapes, all four backends against the plain version;
+    returns the int8 times."""
+    out = {}
+    for k in LARGE_KS:
+        for backend in ("float", "fp16", "int8", "onebit"):
+            dim = 32 * W_ONEBIT if backend == "onebit" else D_INT8
+            args = ivf_case(gen, backend, Q, NLIST, L_MAIN, NPROBE, dim)
+            got = fused_ivf_topk(*args, k, backend)
+            wv, wi = fused_ivf_topk_ref(*args, k=k + 1, backend=backend)
+            want = (wv[:, :k], wi[:, :k])
+            torch.cuda.synchronize()
+            ok, err = ranking_agrees(got, want, exact=backend == "onebit",
+                                     cut=wv[:, k])
+            print(f"[kernel] fused_ivf_topk[{backend}] k={k} (Q={Q}, nlist="
+                  f"{NLIST}, L={L_MAIN}, nprobe={NPROBE}): max_abs_err "
+                  f"{err:.3g} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"fused_ivf_topk[{backend}] k={k} "
+                                     "disagrees with fused_ivf_topk_ref")
+            if backend == "int8":
+                out[f"k{k}_ms"] = cuda_ms(
+                    lambda: fused_ivf_topk(*args, k, backend), 3)
+                out[f"k{k}_plain_ms"] = cuda_ms(
+                    lambda: fused_ivf_topk_ref(*args, k=k, backend=backend),
+                    1)
+                print(f"[kernel] fused_ivf_topk[int8] k={k}: "
+                      f"{out[f'k{k}_ms']:.3f} ms, plain "
+                      f"{out[f'k{k}_plain_ms']:.3f} ms")
+            del got, want, args
+    # how the cost grows with the probe depth: int8 at the main's shapes
+    args = ivf_case(gen, "int8", Q, NLIST, L_MAIN, NPROBE, D_INT8)
+    for k in GROWTH_KS:
+        wv, wi = fused_ivf_topk_ref(*args, k=k + 1, backend="int8")
+        ok, err = ranking_agrees(fused_ivf_topk(*args, k, "int8"),
+                                 (wv[:, :k], wi[:, :k]), exact=False,
+                                 cut=wv[:, k])
+        if not ok:
+            raise AssertionError(f"fused_ivf_topk[int8] k={k} disagrees with "
+                                 "fused_ivf_topk_ref")
+        del wv, wi
+        out[f"k{k}_ms"] = cuda_ms(lambda: fused_ivf_topk(*args, k, "int8"), 2)
+        out[f"k{k}_plain_ms"] = cuda_ms(
+            lambda: fused_ivf_topk_ref(*args, k=k, backend="int8"), 1)
+        print(f"[kernel] fused_ivf_topk[int8] k={k}: max_abs_err {err:.3g} "
+              f"ok; {out[f'k{k}_ms']:.3f} ms, plain "
+              f"{out[f'k{k}_plain_ms']:.3f} ms")
+    del args
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_ivf_kernel(rates) -> dict:
@@ -440,7 +558,100 @@ def phase_ivf_kernel(rates) -> dict:
               f"{n_bytes / 1e9:.4f} GB, {n_ops / 1e9:.3f} GOP)")
         del got, want, args, probes, qe, store, ids, base
     torch.cuda.empty_cache()
+    rec.update(check_ivf_large_k(gen))
     print(f"[kernel] fused_ivf_topk: {json.dumps(rec)}")
+    return rec
+
+
+def quantize_case(gen, n: int, d: int, d_out: int, n_fit: int = 65536):
+    """(N, d) f32 rows off the origin and the fused parameters of a
+    [CenterNorm, PCA, CenterNorm, Int8Quantizer] pipeline fitted on the
+    first ``n_fit`` of them, on the card."""
+    from repro_torch.core import (CenterNorm, CompressionPipeline,
+                                  Int8Quantizer, PCA)
+    from repro_torch.kernels.fused_quantize.ops import params_from_pipeline
+
+    x = torch.randn(n, d, device="cuda", generator=gen)
+    x += 3.0 * torch.randn(d, device="cuda", generator=gen)
+    pipe = CompressionPipeline([CenterNorm(), PCA(d_out), CenterNorm(),
+                                Int8Quantizer()])
+    pipe.fit(x[:n_fit])
+    return x, params_from_pipeline(pipe)
+
+
+def codes_agree(got, want) -> tuple[bool, int, float]:
+    """The kernel's bar (repro's tests/test_kernels.py): codes differ by at
+    most 1, on fewer than 1% of the elements."""
+    diff = (got.int() - want.int()).abs()
+    worst = int(diff.max()) if diff.numel() else 0
+    share = float((diff > 0).float().mean()) if diff.numel() else 0.0
+    return worst <= 1 and share < 0.01, worst, share
+
+
+def phase_quantize_kernel(rates) -> dict:
+    """fused_quantize at the build's shapes, (1M, 768) → 128, against the
+    four staged passes, plus ragged shapes and row independence."""
+    byte_rate, bf16_rate, int8_rate, f32_rate = rates
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n, d, d_out = D_MAIN, 768, D_INT8
+    x, params = quantize_case(gen, n, d, d_out)
+    got = fused_quantize(x, *params)
+    want = fused_quantize_ref(x, *params)
+    torch.cuda.synchronize()
+    ok, worst, share = codes_agree(got, want)
+    print(f"[kernel] fused_quantize ({n}, {d}) -> {d_out}: max code diff "
+          f"{worst}, share differing {share:.3g} (bar <= 1 on < 1%) "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("fused_quantize disagrees with its plain version")
+    # a row's codes depend on that row alone: a permuted odd-sized subset
+    # (and a single row) encodes to the full encode's rows, bit for bit
+    perm = torch.randperm(n, device="cuda", generator=gen)[:65537]
+    one = fused_quantize(x[777:778], *params)
+    same = torch.equal(fused_quantize(x[perm], *params), got[perm]) and \
+        torch.equal(one, got[777:778])
+    print(f"[kernel] fused_quantize row independence (permuted 65537-row "
+          f"subset, one row): {'bit-identical' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError("fused_quantize codes depend on the batch")
+    cases = [(one, fused_quantize_ref(x[777:778], *params), (1, d, d_out))]
+    # above 256 outputs the kernel takes several passes through a scratch
+    wide = ((257, 96, 32), (1000, 64, 16), (600, 288, 256), (600, 768, 384),
+            (1000, 320, 300))
+    for shape in wide:
+        xr, pr = quantize_case(gen, *shape, n_fit=shape[0])
+        full = fused_quantize(xr, *pr)
+        cases.append((full, fused_quantize_ref(xr, *pr), shape))
+        sub = torch.randperm(shape[0], device="cuda", generator=gen)[:131]
+        if not torch.equal(fused_quantize(xr[sub], *pr), full[sub]):
+            raise AssertionError(f"fused_quantize codes depend on the batch "
+                                 f"at {shape}")
+    for got_r, want_r, shape in cases:
+        ok_r, worst_r, share_r = codes_agree(got_r, want_r)
+        if not ok_r:
+            raise AssertionError(f"fused_quantize disagrees at {shape}: max "
+                                 f"{worst_r}, share {share_r:.3g}")
+    print("[kernel] fused_quantize ragged (1, 768)->128, " + ", ".join(
+        f"({n_}, {d_})->{o_}" for n_, d_, o_ in wide) + ": within the bar, "
+        "a permuted 131-row subset of each bit-identical")
+    mu1, w = params[0], params[1]
+    b_ms, b_by = bound(n * d * 4 + n * d_out + (d * d_out + d + 3 * d_out) * 4,
+                       2.0 * n * d * d_out, f32_rate, byte_rate)
+    rec = {
+        "name": "fused_quantize", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_quantize.cu",
+        "replaces": "src/repro/kernels/fused_quantize/kernel.py:58",
+        "max_abs_err": float(worst), "share_differing": share,
+        "ms": cuda_ms(lambda: fused_quantize(x, *params), 10),
+        "plain_ms": cuda_ms(lambda: fused_quantize_ref(x, *params), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.mm(x, w), 10),
+        "library_note": "torch.mm (N, 768) x (768, 128) f32, tf32 off: the "
+                        "product alone",
+        "shape": f"N={n} d={d} d_out={d_out}"}
+    del x, got, want, perm, mu1, w, params
+    torch.cuda.empty_cache()
+    print(f"[kernel] fused_quantize: {json.dumps(rec)}")
     return rec
 
 
@@ -497,16 +708,37 @@ def profile_batches(indexes, queries, **kw) -> None:
               f"{busy / wall_ms:.3f}; {top}")
 
 
-def make_kb(args):
+def start_kbs(args, pool):
+    """Make both KBs on the host in worker threads (numpy releases the GIL
+    in its draws and products) while the kernel phase runs on the card:
+    the main path's ``--n-docs`` KB and the mutable phase's, with
+    ``N_ADDS · ADD_ROWS`` more docs.  Returns their futures."""
     from repro_torch.data import make_dpr_like_kb
 
     t0 = time.perf_counter()
-    kb = make_dpr_like_kb(n_queries=args.n_queries, n_docs=args.n_docs,
-                          d=768, seed=args.seed, device="cuda")
+
+    def make(n_docs):
+        kb = make_dpr_like_kb(n_queries=args.n_queries, n_docs=n_docs, d=768,
+                              seed=args.seed, device="cpu")
+        return kb, time.perf_counter() - t0
+
+    return (pool.submit(make, args.n_docs),
+            pool.submit(make, args.n_docs + N_ADDS * ADD_ROWS))
+
+
+def kb_on_card(future, tag: str, args):
+    """Wait for a KB made by :func:`start_kbs` and move it to the card."""
+    from repro_torch.data.synthetic import KBData
+
+    t0 = time.perf_counter()
+    kb, made_s = future.result()
+    kb = KBData(docs=kb.docs.cuda(), queries=kb.queries.cuda(),
+                relevant=kb.relevant.cuda(), meta=kb.meta)
     torch.cuda.synchronize()
-    print(f"[main] KB {tuple(kb.docs.shape)} f32 docs, "
-          f"{tuple(kb.queries.shape)} queries, seed {args.seed}: "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[{tag}] KB {tuple(kb.docs.shape)} f32 docs, "
+          f"{tuple(kb.queries.shape)} queries, seed {args.seed}: made on the "
+          f"host in {made_s:.1f} s beside the earlier phases, waited "
+          f"{time.perf_counter() - t0:.1f} s with the copy to the card")
     return kb
 
 
@@ -721,6 +953,291 @@ def phase_ivf(args, kb, exact, rp_float) -> dict[str, int]:
     return counts
 
 
+def latency(secs, n_queries: int) -> str:
+    ms = sorted(x * 1e3 for x in secs)
+    p99 = ms[min(len(ms) - 1, round(0.99 * (len(ms) - 1)))]
+    return (f"{n_queries / sum(secs):.1f} qps, batch {BATCH} p50 "
+            f"{statistics.median(ms):.3f} ms p99 {p99:.3f} ms")
+
+
+def _checked(name, vals, ids, n_queries, n_ids):
+    if vals.shape != (n_queries, K) or not bool(torch.isfinite(vals).all()) \
+            or int(ids.min()) < 0 or int(ids.max()) >= n_ids:
+        raise AssertionError(f"{name}: malformed search output")
+    return vals, ids
+
+
+def drive_mutable(name, spec, kb, n_main, nprobes, dead_of):
+    """One mutable index through the live-update path, as a user drives
+    it: build over the first ``n_main`` docs, search, 8 adds, search,
+    deletes (``dead_of(ranking) → ids``), search.  Returns the index and
+    what each state printed and ranked."""
+    from repro_torch.retrieval import build_index
+
+    queries, n_total = kb.queries, kb.docs.shape[0]
+    add_rows = (n_total - n_main) // N_ADDS
+    run = {"counts": {}, "results": {}, "n_main_dead": 0}
+    before = launch_counts()
+    t0 = time.perf_counter()
+    seg = build_index(spec, kb.docs[:n_main], queries, device="cuda")
+    torch.cuda.synchronize()
+    run["build_s"] = time.perf_counter() - t0
+    run["counts"]["build"] = diff_counts(before, launch_counts())
+    print(f"[mutable] {name}: built over {n_main} docs in "
+          f"{run['build_s']:.1f} s; launches {run['counts']['build']}")
+
+    def search_state(state):
+        for nprobe in nprobes:
+            kw = {} if nprobe is None else {"nprobe": nprobe}
+            seg.search(queries[:BATCH], K, **kw)          # warm-up
+            vals, ids, secs = _search_batches(seg, queries, K, **kw)
+            _checked(name, vals, ids, queries.shape[0], n_total)
+            run["results"][(state, nprobe)] = (vals, ids)
+            tag = "" if nprobe is None else f" nprobe {nprobe}"
+            print(f"[mutable] {name} {state}{tag}: "
+                  f"{latency(secs, queries.shape[0])}; main probed "
+                  f"k + #dead(main) = {K + run['n_main_dead']} deep")
+
+    search_state("main")
+    before = launch_counts()
+    add_ms = []
+    for i in range(N_ADDS):
+        block = kb.docs[n_main + i * add_rows: n_main + (i + 1) * add_rows]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg.add(block)
+        torch.cuda.synchronize()
+        add_ms.append((time.perf_counter() - t0) * 1e3)
+    run["counts"]["adds"] = diff_counts(before, launch_counts())
+    run["add_ms"] = add_ms
+    print(f"[mutable] {name}: {N_ADDS} adds of {add_rows} rows, ms each "
+          f"{', '.join(f'{x:.2f}' for x in add_ms)} (median "
+          f"{statistics.median(add_ms):.3f}); launches "
+          f"{run['counts']['adds']}")
+    search_state("added")
+    dead = dead_of(run["results"])
+    n_dead = seg.delete(dead)
+    if n_dead != len(dead):
+        raise AssertionError(f"{name}: deleted {n_dead} of {len(dead)}")
+    run["dead"] = np.asarray(dead)
+    run["n_main_dead"] = int((run["dead"] < n_main).sum())
+    search_state("deleted")
+    run["index"] = seg
+    return run
+
+
+def diff_counts(before: dict, after: dict) -> dict:
+    return {n: after[n] - before[n] for n in after if after[n] != before[n]}
+
+
+def phase_mutable(args, kb) -> dict[str, int]:
+    """Mutable indexes: a 1M-doc main, 8 live adds of 16,384 rows, deletes,
+    through the paper's pre+post-normalized 24x recipe (fused_quantize on
+    build and adds) and the IVF 24x recipe (the main probed k + #dead
+    deep: fused_ivf_topk above MAX_K); each checked against an equivalent
+    fresh index, through compact() and a v2 save/load.  Returns the launch
+    counts of the driven run."""
+    from repro_torch.retrieval import (CompressedIndex, DenseIndex, IVFIndex,
+                                       IndexSpec, load_index,
+                                       r_precision_from_ids, recall_at_k)
+    from repro_torch.retrieval.ivf import build_padded_lists
+    from repro_torch.retrieval.scorers import (apply_float_stages,
+                                               encode_storage)
+
+    n_main = args.n_docs
+    queries, n_total = kb.queries, kb.docs.shape[0]
+    print(f"[mutable] main {n_main} docs, then {N_ADDS} adds of {ADD_ROWS}")
+    rng = np.random.default_rng(args.seed + 13)
+
+    def top_ids(results, state, nprobe, lo, hi, n):
+        """``n`` distinct ids in [lo, hi) that the ranking returned: the
+        deletes hit documents that searches find."""
+        ids = results[(state, nprobe)][1].cpu().numpy().ravel()
+        pool = np.unique(ids[(ids >= lo) & (ids < hi)])
+        return rng.choice(pool, n, replace=False).tolist()
+
+    post_spec = IndexSpec(stages=(("CenterNorm", {}), ("PCA", {"dim": 128}),
+                                  ("CenterNorm", {}), ("Int8Quantizer", {})),
+                          mutable=True)
+    ivf_spec = IndexSpec(method="pca_int8", dim=128, post=False,
+                         ivf=(NLIST, NPROBE), kmeans_iters=8,
+                         kmeans_init="++", balanced_lists=True, mutable=True)
+    reset_launch_counts()
+    runs = {
+        "seg_24x_post": drive_mutable(
+            "seg_24x_post", post_spec, kb, n_main, (None,),
+            lambda res: top_ids(res, "added", None, 0, n_main, 100)
+            + top_ids(res, "added", None, n_main, n_total, 100)),
+        "seg_ivf_24x": drive_mutable(
+            "seg_ivf_24x", ivf_spec, kb, n_main, NPROBES_TIMED,
+            lambda res: top_ids(res, "added", NPROBE, 0, n_main, 1500)),
+    }
+    counts = launch_counts()
+    print(f"[mutable] launches over the mutable path: {counts}")
+    post = runs["seg_24x_post"]
+    if post["counts"]["build"].get("fused_quantize", 0) < 1 or \
+            post["counts"]["adds"].get("fused_quantize", 0) < N_ADDS:
+        raise AssertionError("seg_24x_post: fused_quantize did not encode "
+                             "the build and every add")
+    for kern in ("int8_ip", "topk_blocks", "fused_ivf_topk",
+                 "fused_quantize"):
+        if counts[kern] < 1:
+            raise AssertionError(f"{kern} never launched on the mutable path")
+
+    # -- seg_24x_post: a fresh build over the surviving rows ------------
+    seg = post["index"]
+    vals, ids = post["results"][("deleted", None)]
+    alive = np.setdiff1d(np.arange(n_total), post["dead"])
+    alive_t = torch.from_numpy(alive).cuda()
+    fresh = CompressedIndex(seg.main.pipeline, sim=seg.sim,
+                            backend=seg.main.backend, device="cuda")
+    fresh.add(kb.docs[alive_t])
+    fv, fi, _ = _search_batches(fresh, queries, K)
+    same_ids = torch.equal(alive_t[fi], ids)
+    same_bits = torch.equal(fv.view(torch.int32), vals.view(torch.int32))
+    print(f"[mutable] seg_24x_post vs a fresh CompressedIndex over the "
+          f"{len(alive)} surviving rows (same fitted pipeline): ids "
+          f"{'equal' if same_ids else 'DIFFER'}, score bits "
+          f"{'equal' if same_bits else 'DIFFER'} (max |dv| "
+          f"{float((fv - vals).abs().max()):.3g})")
+    if not (same_ids and same_bits):
+        raise AssertionError("seg_24x_post ranks differently from a fresh "
+                             "build over the surviving rows")
+    del fresh, fv, fi
+
+    # the fused encode against the staged plain path on the card
+    main_docs = kb.docs[:n_main]
+    plain_codes = seg.scorer.encode_docs(
+        apply_float_stages(seg.float_stages, main_docs, "docs"))
+    ok, worst, share = codes_agree(seg.main.storage, plain_codes)
+    plain = CompressedIndex(seg.main.pipeline, sim=seg.sim,
+                            backend=seg.main.backend, device="cuda")
+    plain.load_state_dict({"pipeline": seg.main.pipeline.state_dict(),
+                           "storage": plain_codes, "n_docs": n_main,
+                           "dim": seg.main._dim})
+    _, pi, _ = _search_batches(plain, queries, K)
+    overlap = recall_at_k(post["results"][("main", None)][1], pi)
+    print(f"[mutable] seg_24x_post build: fused_quantize codes vs the staged "
+          f"plain encode on the card: max diff {worst}, share differing "
+          f"{share:.3g} ({'within' if ok else 'OUTSIDE'} the bar), search "
+          f"recall@{K} {overlap:.4f}")
+    if not ok:
+        raise AssertionError("fused_quantize build disagrees with the staged "
+                             "encode")
+    del plain, plain_codes, pi
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encode_storage(seg.float_stages, seg.scorer, main_docs)
+    torch.cuda.synchronize()
+    post["encode_docs_s"] = n_main / (time.perf_counter() - t0)
+
+    # -- seg_ivf_24x: one IVF index, same centroids, all surviving rows --
+    ivf_run = runs["seg_ivf_24x"]
+    seg_ivf = ivf_run["index"]
+    main = seg_ivf.main
+    sd = seg_ivf.state_dict()
+    tomb = np.zeros(seg_ivf.next_gid, bool)
+    tomb[sd["tombstones"]] = True
+    # the layers' own codes and routing labels: the IVF encode is staged
+    # (cuBLAS, whose rows may round differently at another batch size), so
+    # the check is of the search over main + delta layers
+    keep_m = ~tomb[sd["main_gids"]]
+    rows = [main.storage[torch.from_numpy(keep_m).cuda()]]
+    labels = [sd["main"]["labels"][keep_m]]
+    gids = [sd["main_gids"][keep_m]]
+    for s_ in sd["segments"]:
+        keep = ~tomb[s_["gids"]]
+        rows.append(s_["storage"][torch.from_numpy(keep).cuda()])
+        labels.append(s_["labels"][keep])
+        gids.append(s_["gids"][keep])
+    labels, gids = np.concatenate(labels), np.concatenate(gids)
+    gids_t = torch.from_numpy(gids.astype(np.int64)).cuda()
+    ref = IVFIndex(main.pipeline, nlist=main.nlist, nprobe=main.nprobe,
+                   sim=main.sim, backend=main.backend, device="cuda")
+    ref.load_state_dict({
+        "pipeline": main.pipeline.state_dict(), "storage": torch.cat(rows),
+        "centroids": main.centroids, "labels": labels,
+        "lists": build_padded_lists(labels, main.nlist),
+        "nlist": main.nlist, "nprobe": main.nprobe, "n_docs": len(labels),
+        "dim": main._dim})
+    for nprobe in NPROBES_TIMED:
+        # K + 1: the (k+1)-th value marks near-ties across the cut (delta
+        # rows are scored by int8_ip here, by the fused kernel there)
+        rv, ri, _ = _search_batches(ref, queries, K + 1, nprobe=nprobe)
+        got = ivf_run["results"][("deleted", nprobe)]
+        ok, err = ranking_agrees(got, (rv[:, :K], gids_t[ri[:, :K]]),
+                                 exact=False, cut=rv[:, K])
+        print(f"[mutable] seg_ivf_24x nprobe {nprobe} vs one IVFIndex with "
+              f"the same centroids over the {len(gids)} surviving rows: "
+              f"max_abs_err {err:.3g}, {'agrees' if ok else 'DIFFERS'}")
+        if not ok:
+            raise AssertionError("seg_ivf_24x ranks differently from the "
+                                 "equivalent IVF index")
+    del ref, rows
+    t0 = time.perf_counter()
+    encode_storage(main.float_stages, main.scorer, main_docs)
+    torch.cuda.synchronize()
+    ivf_run["encode_docs_s"] = n_main / (time.perf_counter() - t0)
+
+    # -- compaction, the v2 round trip, quality, stats, traces -----------
+    float_ids = _search_batches(DenseIndex(kb.docs, device="cuda"), queries,
+                                K)[1]
+    rp_float = r_precision_from_ids(float_ids, kb.relevant)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in runs.items():
+            seg = run["index"]
+            ivf = seg.nprobe is not None
+            q = queries[:BATCH] if ivf else queries
+            kw = {"nprobe": NLIST} if ivf else {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comp = seg.compact()
+            torch.cuda.synchronize()
+            run["compact_s"] = time.perf_counter() - t0
+            # an IVF compaction refits the router: compare at full probe
+            cv, ci, _ = _search_batches(comp, q, K + 1, **kw)
+            sv, si, _ = _search_batches(seg, q, K, **kw)
+            ok, err = ranking_agrees((sv, si), (cv[:, :K], ci[:, :K]),
+                                     exact=not ivf, cut=cv[:, K])
+            print(f"[mutable] {name}: compact() in {run['compact_s']:.2f} s "
+                  f"({len(comp)} live, {comp.n_segments} segments); ranking"
+                  f"{' at nprobe = nlist' if ivf else ''} "
+                  f"{'kept' if ok else 'CHANGED'}"
+                  f"{'' if ivf else ' bit for bit'} (max_abs_err {err:.3g})")
+            if not ok:
+                raise AssertionError(f"{name}: compact() changed the ranking")
+            del comp
+            path = os.path.join(tmp, f"{name}.npz")
+            seg.save(path)
+            loaded = load_index(path, device="cuda")
+            state = ("deleted", NPROBE if ivf else None)
+            kw = {"nprobe": NPROBE} if ivf else {}
+            lv, li, _ = _search_batches(loaded, queries, K, **kw)
+            rv_, ri_ = run["results"][state]
+            same = torch.equal(li, ri_) and torch.equal(
+                lv.view(torch.int32), rv_.view(torch.int32))
+            print(f"[mutable] {name}: v2 save + load_index "
+                  f"({os.path.getsize(path) / 2**20:.1f} MiB) ranking "
+                  f"{'bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                raise AssertionError(f"{name}: the v2 artifact ranks "
+                                     "differently")
+            del loaded
+            for nprobe in (NPROBES_TIMED if ivf else (None,)):
+                rp = r_precision_from_ids(run["results"][("added", nprobe)][1],
+                                          kb.relevant)
+                tag = "" if nprobe is None else f" nprobe {nprobe}"
+                print(f"[mutable] {name}{tag}: R-precision after the adds "
+                      f"{rp:.4f} ({rp / rp_float:.4f} of float "
+                      f"{rp_float:.4f} over the same {n_total} docs)")
+            print(f"[mutable] {name}: encode {run['encode_docs_s']:.0f} "
+                  f"docs/s; mutable_stats {json.dumps(seg.mutable_stats())}")
+    profile_batches({"seg_24x_post": runs["seg_24x_post"]["index"]}, queries)
+    profile_batches({"seg_ivf_24x": runs["seg_ivf_24x"]["index"]}, queries,
+                    nprobe=NPROBE)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1_000_000)
@@ -730,16 +1247,39 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     smi = phase_environment()
-    phase_build()
-    rates = card_rates(smi)
-    kernels = phase_kernels(rates) + [phase_ivf_kernel(rates)]
-    kb = make_kb(args)
-    counts, exact, rp_float = phase_main_path(args, kb)
-    ivf_counts = phase_ivf(args, kb, exact, rp_float)
+    times = {}
+
+    def lap(name):
+        times[name] = round(time.perf_counter() - t_start - sum(
+            times.values()), 1)
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        main_kb, mutable_kb = start_kbs(args, pool)
+        phase_build()
+        lap("build")
+        rates = card_rates(smi)
+        kernels = phase_kernels(rates) + [phase_ivf_kernel(rates),
+                                          phase_quantize_kernel(rates)]
+        lap("kernels")
+        kb = kb_on_card(main_kb, "main", args)
+        lap("KB wait")
+        counts, exact, rp_float = phase_main_path(args, kb)
+        lap("main path")
+        ivf_counts = phase_ivf(args, kb, exact, rp_float)
+        lap("IVF")
+        del kb, exact
+        torch.cuda.empty_cache()
+        mutable_counts = phase_mutable(args, kb_on_card(mutable_kb,
+                                                        "mutable", args))
+        lap("mutable")
+    # each kernel's launches on the path that drives it
+    path_counts = {"fused_ivf_topk": ivf_counts,
+                   "fused_quantize": mutable_counts}
     for rec in kernels:
-        rec["launches"] = counts[rec["name"]]
-    kernels[-1]["launches"] = ivf_counts["fused_ivf_topk"]
-    print(f"[done] {time.perf_counter() - t_start:.1f} s; card {smi}")
+        rec["launches"] = path_counts.get(rec["name"], counts)[rec["name"]]
+    print(f"[done] {time.perf_counter() - t_start:.1f} s ("
+          + ", ".join(f"{n} {t} s" for n, t in times.items())
+          + f"); card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,12 +24,26 @@
 // Merge: the list is scored TILE rows at a time into shared memory (any
 // list length works: the merge is associative under the strict order).
 // Only the tile's rows that come before the running k-th entry in that
-// order can enter the top-k, so those alone are compacted behind the
-// running top-k — exact, ties kept by the id comparison — and a tile with
-// none is skipped.  The candidates are folded into the running top-k by k
-// rounds of "max score, the min id among its hits, retire that pair"; a
-// round whose best is −inf ends the merge: every later slot is (−inf, −1),
-// as merge_topk_block normalises it.
+// order can enter the top-k, so those alone are compacted into a
+// candidate buffer — exact, ties kept by the id comparison — and a tile
+// with none is skipped.  The candidates are sorted in that order by a
+// bitonic sort in shared memory, and merged with the sorted running top-k
+// by rank: each entry of either list finds its rank in the other by
+// binary search, lands at the sum of its two ranks, and drops out at
+// rank ≥ k.  Only the running top-k's filled prefix takes part (the rest
+// is (−inf, −1), which no candidate follows), so a merged tile costs
+// O(P log² P) for its P (≤ TILE) candidates plus O((filled + P) log) for
+// the ranks: linear in k, where k rounds of "retire the best" were
+// O(k·(k + P)).  Unreachable slots stay (−inf, −1), as merge_topk_block
+// normalises them.
+//
+// Any k: up to the wrapper's MAX_K (1024) the running top-k (two buffers,
+// current and next) sits in shared memory; above it (the wrapper passes a
+// scratch of (Q, 2k) values and ids, allocated with torch.empty) it sits
+// in that global scratch, one slice a query, and the same merge runs
+// there.  The two are separate instantiations (GLOBAL_TOPK), so the
+// shared-memory one keeps shared-memory addressing.  A segmented index
+// probes its main k + #dead(main) deep, so k grows with the tombstones.
 //
 // Bound on an H100 SXM (3.35 TB/s): at Q=256, nprobe=64, 1024 lists of
 // L≈1221 rows, int8 d=128, the distinct probed lists' rows and ids (at
@@ -52,9 +66,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 2048;  // rows scored per merge
-constexpr unsigned FULL = 0xffffffffu;
 
 enum Backend { kFloat = 0, kFp16 = 1, kInt8 = 2, kOneBit = 3 };
 
@@ -142,114 +154,124 @@ __device__ __forceinline__ float row_score(const void* qs_raw,
   }
 }
 
-// Fold the n candidates cv/ci[0, n) — the running top-k in slots [0, k),
-// the compacted tile entries after it — into a new running top-k in slots
-// [0, k).
-__device__ void merge_rounds(float* cv, int* ci, int n, int k, float* nv,
-                             int* ni, float (*red_v)[WARPS],
-                             int (*red_i)[WARPS]) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float m = INFINITY;
-  int sel = INT_MAX;
-  for (int t = 0; t < k; ++t) {
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int e = tid; e < n; e += THREADS) {
-      float v = cv[e];
-      const int id = ci[e];
-      if (v == m && id == sel) {  // retire the previous round's pick
-        v = -INFINITY;
-        cv[e] = v;
-      }
-      if (before(v, id, bv, bi)) {
-        bv = v;
-        bi = id;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(FULL, bv, off);
-      const int oi = __shfl_xor_sync(FULL, bi, off);
-      if (before(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    // two reduction buffers by round parity: one barrier a round suffices
-    if (lane == 0) {
-      red_v[t & 1][warp] = bv;
-      red_i[t & 1][warp] = bi;
-    }
-    __syncthreads();
-    bv = red_v[t & 1][0];
-    bi = red_i[t & 1][0];
-#pragma unroll
-    for (int u = 1; u < WARPS; ++u) {
-      if (before(red_v[t & 1][u], red_i[t & 1][u], bv, bi)) {
-        bv = red_v[t & 1][u];
-        bi = red_i[t & 1][u];
-      }
-    }
-    if (bv == -INFINITY) {  // the same in every thread: uniform exit
-      for (int u = t + tid; u < k; u += THREADS) {
-        nv[u] = -INFINITY;
-        ni[u] = -1;
-      }
-      break;
-    }
-    if (tid == 0) {
-      nv[t] = bv;
-      ni[t] = bi;
-    }
-    m = bv;
-    sel = bi;
+// Sort sv/si[0, n) in the (score desc, id asc) order: a bitonic sort
+// over the next power of two, padded with (−inf, INT_MAX), which sorts
+// after every candidate.  n ≤ TILE.
+__device__ void sort_candidates(float* sv, int* si, int n) {
+  const int tid = threadIdx.x;
+  int p = 1;
+  while (p < n) p <<= 1;
+  for (int e = n + tid; e < p; e += THREADS) {
+    sv[e] = -INFINITY;
+    si[e] = INT_MAX;
   }
   __syncthreads();
-  for (int u = tid; u < k; u += THREADS) {
-    cv[u] = nv[u];
-    ci[u] = ni[u];
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < p / 2; t += THREADS) {
+        const int lo = 2 * stride * (t / stride) + t % stride;
+        const int hi = lo + stride;
+        const float va = sv[lo], vb = sv[hi];
+        const int ia = si[lo], ib = si[hi];
+        // runs with (lo & size) == 0 sort forward, the others backward
+        if ((lo & size) == 0 ? before(vb, ib, va, ia)
+                             : before(va, ia, vb, ib)) {
+          sv[lo] = vb;
+          si[lo] = ib;
+          sv[hi] = va;
+          si[hi] = ia;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Merge the sorted running top-k cv/ci[0, filled) (the rest (−inf, −1))
+// with the n sorted candidates sv/si into nv/ni[0, min(k, filled + n)).
+// An entry's slot is its index plus the count of the other list's entries
+// ahead of it: candidates go after equal running entries, so the slots
+// are distinct.
+__device__ void merge_by_rank(const float* cv, const int* ci, int filled,
+                              const float* sv, const int* si, int n, int k,
+                              float* nv, int* ni) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < filled; i += THREADS) {
+    const float v = cv[i];
+    const int id = ci[i];
+    int lo = 0, hi = n;  // candidates strictly before the entry
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (before(sv[mid], si[mid], v, id)) lo = mid + 1; else hi = mid;
+    }
+    if (i + lo < k) {
+      nv[i + lo] = v;
+      ni[i + lo] = id;
+    }
+  }
+  for (int j = tid; j < n; j += THREADS) {
+    const float v = sv[j];
+    const int id = si[j];
+    int lo = 0, hi = filled;  // running entries not after the candidate
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (!before(v, id, cv[mid], ci[mid])) lo = mid + 1; else hi = mid;
+    }
+    if (j + lo < k) {
+      nv[j + lo] = v;
+      ni[j + lo] = id;
+    }
   }
   __syncthreads();
 }
 
-template <int B, typename T>
+template <int B, typename T, bool GLOBAL_TOPK>
 __global__ void __launch_bounds__(THREADS)
 ivf_fused_kernel(const int* __restrict__ probes, const void* __restrict__ q,
                  const T* __restrict__ storage,
                  const int* __restrict__ list_ids,
                  const float* __restrict__ base, float* __restrict__ out_v,
-                 int* __restrict__ out_i, int nprobe, int nlist, int L,
-                 int w, int k) {
+                 int* __restrict__ out_i, float* scratch_v, int* scratch_i,
+                 int nprobe, int nlist, int L, int w, int k) {
   extern __shared__ float smem[];
-  __shared__ float red_v[2][WARPS];
-  __shared__ int red_i[2][WARPS];
-  __shared__ int count[2];  // compacted entries, by tile parity
+  __shared__ int count[2];  // compacted candidates, by tile parity
   const int tid = threadIdx.x;
   const size_t qi = blockIdx.x;
 
-  // layout: query (w words or floats) | tile tv[TILE] | ti[TILE] |
-  //         candidates cv[k + TILE] | ci[k + TILE] | nv[k] | ni[k]
+  // shared layout: query (w words or floats) | tile tv[TILE] | ti[TILE] |
+  // candidates sv[TILE] | si[TILE], then, unless a global scratch is
+  // given, the running top-k cv[k] | nv[k] | ci[k] | ni[k] (the scratch
+  // holds the same per query: cv | nv values, ci | ni ids)
   float* qs = smem;
   float* tv = qs + w;
   int* ti = reinterpret_cast<int*>(tv + TILE);
-  float* cv = reinterpret_cast<float*>(ti + TILE);
-  int* ci = reinterpret_cast<int*>(cv + k + TILE);
-  float* nv = reinterpret_cast<float*>(ci + k + TILE);
-  int* ni = reinterpret_cast<int*>(nv + k);
+  float* sv = reinterpret_cast<float*>(ti + TILE);
+  int* si = reinterpret_cast<int*>(sv + TILE);
+  float *cv, *nv;
+  int *ci, *ni;
+  if constexpr (GLOBAL_TOPK) {
+    cv = scratch_v + qi * 2 * static_cast<size_t>(k);
+    ci = scratch_i + qi * 2 * static_cast<size_t>(k);
+  } else {
+    cv = reinterpret_cast<float*>(si + TILE);
+    ci = reinterpret_cast<int*>(cv + 2 * k);
+  }
+  nv = cv + k;
+  ni = ci + k;
   const bool vec16 = (static_cast<size_t>(w) * sizeof(T)) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(storage) % 16 == 0;
 
   const uint32_t* qsrc = static_cast<const uint32_t*>(q) + qi * w;
   for (int e = tid; e < w; e += THREADS)
     reinterpret_cast<uint32_t*>(qs)[e] = qsrc[e];  // f32 or word bits
-  for (int u = tid; u < k; u += THREADS) {
+  for (int u = tid; u < 2 * k; u += THREADS) {  // both buffers
     cv[u] = -INFINITY;
     ci[u] = -1;
   }
   if (tid == 0) count[0] = count[1] = 0;
   __syncthreads();
 
-  int tile = 0;
+  int tile = 0, filled = 0;  // filled: the running top-k's real entries
   for (int j = 0; j < nprobe; ++j) {
     const int lid = __ldg(probes + qi * nprobe + j);
     if (lid < 0 || lid >= nlist) continue;  // outside the contract: skip
@@ -273,14 +295,23 @@ ivf_fused_kernel(const int* __restrict__ probes, const void* __restrict__ q,
       const int ki = ci[k - 1];
       for (int r = tid; r < rows; r += THREADS) {
         if (before(tv[r], ti[r], kv, ki)) {
-          const int slot = k + atomicAdd(&count[tile & 1], 1);
-          cv[slot] = tv[r];
-          ci[slot] = ti[r];
+          const int slot = atomicAdd(&count[tile & 1], 1);
+          sv[slot] = tv[r];
+          si[slot] = ti[r];
         }
       }
       __syncthreads();
       const int n = count[tile & 1];
-      if (n > 0) merge_rounds(cv, ci, k + n, k, nv, ni, red_v, red_i);
+      if (n == 0) continue;
+      sort_candidates(sv, si, n);
+      merge_by_rank(cv, ci, filled, sv, si, n, k, nv, ni);
+      float* tf = cv;  // the merged buffer becomes the running one
+      cv = nv;
+      nv = tf;
+      int* tn = ci;
+      ci = ni;
+      ni = tn;
+      filled = min(k, filled + n);
     }
   }
   for (int u = tid; u < k; u += THREADS) {
@@ -292,12 +323,13 @@ ivf_fused_kernel(const int* __restrict__ probes, const void* __restrict__ q,
 template <int B, typename T>
 int launch(const void* probes, const void* q, const void* storage,
            const void* list_ids, const void* base, void* out_v, void* out_i,
-           int n_q, int nprobe, int nlist, int L, int w, int k,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(w) + 2 * TILE +
-                                       2 * (static_cast<size_t>(k) + TILE) +
-                                       2 * static_cast<size_t>(k));
-  auto kernel = ivf_fused_kernel<B, T>;
+           void* scratch_v, void* scratch_i, int n_q, int nprobe, int nlist,
+           int L, int w, int k, cudaStream_t stream) {
+  const bool global_topk = scratch_v != nullptr;
+  size_t smem = sizeof(float) * (static_cast<size_t>(w) + 4 * TILE);
+  if (!global_topk) smem += sizeof(float) * 4 * static_cast<size_t>(k);
+  auto kernel = global_topk ? ivf_fused_kernel<B, T, true>
+                            : ivf_fused_kernel<B, T, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -307,8 +339,9 @@ int launch(const void* probes, const void* q, const void* storage,
   kernel<<<n_q, THREADS, smem, stream>>>(
       static_cast<const int*>(probes), q, static_cast<const T*>(storage),
       static_cast<const int*>(list_ids), static_cast<const float*>(base),
-      static_cast<float*>(out_v), static_cast<int*>(out_i), nprobe, nlist, L,
-      w, k);
+      static_cast<float*>(out_v), static_cast<int*>(out_i),
+      static_cast<float*>(scratch_v), static_cast<int*>(scratch_i), nprobe,
+      nlist, L, w, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -316,28 +349,34 @@ int launch(const void* probes, const void* q, const void* storage,
 
 // q: (n_q, w) f32 for float/fp16/int8, (n_q, w) packed words for 1-bit;
 // storage: (nlist, L, w) f32 / f16 / u8 / 32-bit words; list_ids, probes
-// and outputs int32; base and values f32.
+// and outputs int32; base and values f32.  scratch_v / scratch_i: null, or
+// (n_q, 2k) f32 / int32 for a running top-k in global memory.
 extern "C" int ivf_fused_launch(const void* probes, const void* q,
                                 const void* storage, const void* list_ids,
                                 const void* base, void* out_v, void* out_i,
-                                int n_q, int nprobe, int nlist, int L, int w,
-                                int k, int backend, void* stream) {
+                                void* scratch_v, void* scratch_i, int n_q,
+                                int nprobe, int nlist, int L, int w, int k,
+                                int backend, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((scratch_v == nullptr) != (scratch_i == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (backend) {
     case kFloat:
       return launch<kFloat, float>(probes, q, storage, list_ids, base, out_v,
-                                   out_i, n_q, nprobe, nlist, L, w, k, s);
+                                   out_i, scratch_v, scratch_i, n_q, nprobe,
+                                   nlist, L, w, k, s);
     case kFp16:
       return launch<kFp16, __half>(probes, q, storage, list_ids, base, out_v,
-                                   out_i, n_q, nprobe, nlist, L, w, k, s);
+                                   out_i, scratch_v, scratch_i, n_q, nprobe,
+                                   nlist, L, w, k, s);
     case kInt8:
       return launch<kInt8, uint8_t>(probes, q, storage, list_ids, base,
-                                    out_v, out_i, n_q, nprobe, nlist, L, w, k,
-                                    s);
+                                    out_v, out_i, scratch_v, scratch_i, n_q,
+                                    nprobe, nlist, L, w, k, s);
     case kOneBit:
       return launch<kOneBit, uint32_t>(probes, q, storage, list_ids, base,
-                                       out_v, out_i, n_q, nprobe, nlist, L, w,
-                                       k, s);
+                                       out_v, out_i, scratch_v, scratch_i,
+                                       n_q, nprobe, nlist, L, w, k, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,6 +15,7 @@ spectrum and a few rogue dimensions, and two relevant documents per query
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -32,6 +33,24 @@ class KBData:
     @property
     def dim(self) -> int:
         return int(self.docs.shape[-1])
+
+
+#: rows per block of the row-wise passes, and the threads that run them
+#: (numpy releases the GIL in array work).  Each row gets the arithmetic of
+#: the whole-array expression, so the bytes do not depend on either.
+_ROWS = 16_384
+_THREADS = 4
+
+
+def _row_blocks(n: int):
+    return (slice(s, min(s + _ROWS, n)) for s in range(0, n, _ROWS))
+
+
+def _per_block(fn, n: int) -> None:
+    """``fn(rows)`` for every block of ``n`` rows; blocks write disjoint
+    rows."""
+    with ThreadPoolExecutor(_THREADS) as pool:
+        list(pool.map(fn, _row_blocks(n)))
 
 
 def _kb_arrays(n_queries, n_docs, d, seed, r_eff, alpha, query_noise,
@@ -68,22 +87,44 @@ def _kb_arrays(n_queries, n_docs, d, seed, r_eff, alpha, query_noise,
     n_articles = max(2, n_docs // spans_per_article)
     z_art = rng.standard_normal((n_articles, r_eff)).astype(np.float32)
     sig = latent_to_obs(z_art)
-    sig_norms = np.linalg.norm(sig, axis=1, keepdims=True)
-    sig = sig / sig_norms * 8.0 \
-        * np.exp(rng.normal(0, 0.05, size=(n_articles, 1))).astype(np.float32)
+    jitter = np.exp(rng.normal(0, 0.05, size=(n_articles, 1))
+                    ).astype(np.float32)
+
+    def scale_articles(b):
+        sig[b] = sig[b] / np.linalg.norm(sig[b], axis=1, keepdims=True) \
+            * 8.0 * jitter[b]
+
+    _per_block(scale_articles, n_articles)
 
     # documents: article signal + span noise + mean offset + "style"
     # components orthogonal to every query (per-document norm variance)
     art_of_doc = np.repeat(np.arange(n_articles), spans_per_article)[:n_docs]
-    eps_d = rng.standard_normal((n_docs, d)).astype(np.float32) * doc_noise
+    eps_d = np.empty((n_docs, d), np.float32)
+    for b in _row_blocks(n_docs):   # the draws of one (n_docs, d) draw
+        eps_d[b] = rng.standard_normal((b.stop - b.start, d)) \
+            .astype(np.float32) * doc_noise
     n_style = 8
     style_basis = q_full[:, r_eff + 2: r_eff + 2 + n_style]      # (d, 8)
     h = rng.standard_normal((n_docs, n_style)).astype(np.float32) \
         * (style_scale / np.sqrt(n_style))
     s_i = np.exp(rng.normal(0.0, norm_jitter, size=(n_docs, 1))
                  ).astype(np.float32)
-    docs = mu_docs[None, :] + s_i * sig[art_of_doc] \
-        + h @ style_basis.T + eps_d
+    style = h @ style_basis.T
+    # the sum is promoted (float64); its row norms feed meta, and the
+    # documents are kept in float32 as every caller stores them
+    dt = np.result_type(mu_docs, s_i, sig, style, eps_d)
+    docs = np.empty((n_docs, d), np.float32)
+    doc_l2, doc_l1 = np.empty(n_docs, dt), np.empty(n_docs, dt)
+
+    def make_docs(b):
+        block = mu_docs[None, :] + s_i[b] * sig[art_of_doc[b]] \
+            + style[b] + eps_d[b]
+        doc_l2[b] = np.linalg.norm(block, axis=1)
+        doc_l1[b] = np.sum(np.abs(block), axis=1)
+        docs[b] = block
+
+    _per_block(make_docs, n_docs)
+    del eps_d, style
 
     # queries: midpoint of two articles + in-subspace noise, scaled by a
     # heavy-tailed per-query signal strength β
@@ -103,9 +144,9 @@ def _kb_arrays(n_queries, n_docs, d, seed, r_eff, alpha, query_noise,
     rel = np.minimum(rel, n_docs - 1).astype(np.int32)
 
     meta = {
-        "doc_l2": float(np.mean(np.linalg.norm(docs, axis=1))),
+        "doc_l2": float(np.mean(doc_l2)),
         "query_l2": float(np.mean(np.linalg.norm(queries, axis=1))),
-        "doc_l1": float(np.mean(np.sum(np.abs(docs), axis=1))),
+        "doc_l1": float(np.mean(doc_l1)),
         "query_l1": float(np.mean(np.sum(np.abs(queries), axis=1))),
         "seed": seed, "r_eff": r_eff, "alpha": alpha,
     }

@@ -13,15 +13,19 @@ at first use.
 - ``topk_blocks`` : per-block top-k, stage 1 of the exact two-stage top-k.
 - ``ivf_fused``   : IVF search, probed lists gathered, scored and ranked in
                     one kernel (wrapper ``fused_ivf_topk``).
+- ``fused_quantize``: the one-pass doc encode of the pre+post-normalized
+                    24× recipe (center+normalize, PCA, center+normalize,
+                    int8).
 """
 
 
 def _wrappers():
     from repro_torch.kernels.binary_ip.kernel import binary_ip
+    from repro_torch.kernels.fused_quantize.kernel import fused_quantize
     from repro_torch.kernels.int8_ip.kernel import int8_ip
     from repro_torch.kernels.ivf_fused.kernel import fused_ivf_topk
     from repro_torch.kernels.topk_blocks.kernel import topk_blocks
-    return (int8_ip, binary_ip, topk_blocks, fused_ivf_topk)
+    return (int8_ip, binary_ip, topk_blocks, fused_ivf_topk, fused_quantize)
 
 
 def launch_counts() -> dict[str, int]:

@@ -43,8 +43,12 @@ SIGNATURES = {
     # (scores f32, vals f32, idx i32, n_q, n_d, k, block_d, n_blocks, stream)
     "topk_blocks_launch": [_p, _p, _p, _i, _i, _i, _i, _i, _p],
     # (probes i32, q, storage, list ids i32, base f32, vals f32, ids i32,
-    #  n_q, nprobe, nlist, L, w, k, backend, stream)
-    "ivf_fused_launch": [_p] * 7 + [_i] * 7 + [_p],
+    #  scratch f32 | null, scratch i32 | null, n_q, nprobe, nlist, L, w, k,
+    #  backend, stream)
+    "ivf_fused_launch": [_p] * 9 + [_i] * 7 + [_p],
+    # (x f32, mu1, w, mu2, scale, zero f32, scratch f32 | null, out u8, n,
+    #  d, d_out, stream)
+    "fused_quantize_launch": [_p] * 8 + [_i] * 3 + [_p],
 }
 
 

@@ -16,7 +16,8 @@ from repro_torch.core.quantization import pack_bits
 from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_fused.ref import BACKENDS, fused_ivf_topk_ref
 
-#: the running top-k sits in shared memory; larger k is not supported
+#: the running top-k sits in shared memory up to this k, and in a global
+#: scratch of (Q, 2k) values and ids above it
 MAX_K = 1024
 
 #: backend → (list storage dtype, encoded query dtype)
@@ -72,9 +73,6 @@ def fused_ivf_topk(probes: torch.Tensor, qe: torch.Tensor,
                                   k, backend)
     if qe.device.type != "cuda":
         raise ValueError(f"fused_ivf_topk: unsupported device {qe.device}")
-    if k > MAX_K:
-        raise ValueError(f"fused_ivf_topk keeps at most k={MAX_K} on the "
-                         f"card, got k={k}")
     q = (pack_bits(qe) if backend == "onebit" else qe.float()).contiguous()
     probes, base = probes.contiguous(), base.contiguous()
     storage, ids = list_storage.contiguous(), list_ids.contiguous()
@@ -82,14 +80,22 @@ def fused_ivf_topk(probes: torch.Tensor, qe: torch.Tensor,
     nlist, max_len, w = storage.shape
     vals = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
     out_ids = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
+    scratch_v = scratch_i = None
+    if k > MAX_K:
+        scratch_v = torch.empty((n_q, 2 * k), dtype=torch.float32,
+                                device=q.device)
+        scratch_i = torch.empty((n_q, 2 * k), dtype=torch.int32,
+                                device=q.device)
     if n_q:
         with torch.cuda.device(q.device):
             _build.check(_build.library().ivf_fused_launch(
                 probes.data_ptr(), q.data_ptr(), storage.data_ptr(),
                 ids.data_ptr(), base.data_ptr(), vals.data_ptr(),
-                out_ids.data_ptr(), n_q, nprobe, nlist, max_len, w, k,
-                BACKENDS.index(backend), _build.stream_handle(q)),
-                "fused_ivf_topk")
+                out_ids.data_ptr(),
+                None if scratch_v is None else scratch_v.data_ptr(),
+                None if scratch_i is None else scratch_i.data_ptr(),
+                n_q, nprobe, nlist, max_len, w, k, BACKENDS.index(backend),
+                _build.stream_handle(q)), "fused_ivf_topk")
         fused_ivf_topk.launches += 1
     return vals, out_ids
 

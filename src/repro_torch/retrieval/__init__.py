@@ -6,6 +6,9 @@ The declarative front door is :mod:`repro_torch.retrieval.api`::
     spec = IndexSpec(method="pca_int8", dim=128, post=False)
     index = build_index(spec, docs, queries_sample)       # on CUDA
     index.save("kb.npz");  index = load_index("kb.npz")
+
+``IndexSpec(..., mutable=True)`` builds a :class:`SegmentedIndex`: live
+``add``/``delete``, ``compact()``, saved as a version-2 artifact.
 """
 
 from repro_torch.retrieval.api import (IndexSpec, ShardSpec, build_index,
@@ -17,6 +20,7 @@ from repro_torch.retrieval.rprecision import (r_precision,
                                               r_precision_from_ids,
                                               recall_at_k,
                                               retrieved_relevant_counts)
+from repro_torch.retrieval.segments import DriftMonitor, SegmentedIndex
 from repro_torch.retrieval.scorers import (Scorer, get_scorer,
                                            register_scorer,
                                            scorer_for_pipeline, scorer_names)
@@ -27,6 +31,7 @@ __all__ = [
     "IndexSpec", "ShardSpec", "build_index", "load_index",
     "load_index_meta", "save_index",
     "CompressedIndex", "DenseIndex", "IVFFlatIndex", "IVFIndex",
+    "DriftMonitor", "SegmentedIndex",
     "Scorer", "get_scorer", "register_scorer",
     "scorer_for_pipeline", "scorer_names",
     "r_precision", "r_precision_from_ids", "recall_at_k",

@@ -7,16 +7,22 @@ Counterpart of ``repro.retrieval.api`` for exact and IVF search:
   ``repro``'s names, ``jnp``/``pallas``, and read back as the port's).
 * :func:`build_index` — registry → pipeline → scorer → IVF, for
   :class:`CompressedIndex`, the float :class:`DenseIndex` and
-  :class:`IVFIndex` (``spec.ivf``).  Sharded and mutable specs raise
-  ``NotImplementedError`` naming the slice of the port that adds them.
+  :class:`IVFIndex` (``spec.ivf``), wrapped in a :class:`SegmentedIndex`
+  for ``spec.mutable``.  Sharded specs raise ``NotImplementedError``
+  naming the slice of the port that adds them.
 * :func:`save_index` / :func:`load_index` / :func:`load_index_meta` — the
-  version-1 ``.npz`` artifact, read and written with numpy alone:
-  ``__meta__`` is a 0-d JSON string (no pickle), ``pipeline:{i}:{key}``
-  arrays hold each stage's state, ``storage`` the encoded documents (1-bit
-  words as uint32), and an IVF index adds ``centroids``, ``lists`` and
-  ``labels``.  ``repro.retrieval.api.load_index`` reads what
-  :func:`save_index` writes, and :func:`load_index` reads ``repro``'s —
-  the one way fitted state crosses between the packages.
+  ``.npz`` artifacts, read and written with numpy alone: ``__meta__`` is a
+  0-d JSON string (no pickle), ``pipeline:{i}:{key}`` arrays hold each
+  stage's state, ``storage`` the encoded documents (1-bit words as
+  uint32), and an IVF index adds ``centroids``, ``lists`` and ``labels``
+  (version 1).  A :class:`SegmentedIndex` adds its mutable layer —
+  ``main_gids``, ``tombstones``, ``seg:{i}:storage|gids|labels`` and
+  ``drift:sum``, with the allocator and drift scalars under
+  ``__meta__["segmented"]`` (version 2).  ``repro.retrieval.api.
+  load_index`` reads what :func:`save_index` writes, and
+  :func:`load_index` reads ``repro``'s — the one way fitted state crosses
+  between the packages.  Chunked (v3) directories wait for the storage
+  slice.
 """
 
 from __future__ import annotations
@@ -34,23 +40,23 @@ import torch
 from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.registry import (build_method, build_pipeline_from_spec,
                                        pipeline_spec)
-from repro_torch.retrieval.index import CompressedIndex, DenseIndex
+from repro_torch.retrieval.index import (CompressedIndex, DenseIndex,
+                                         storage_tensor)
 from repro_torch.retrieval.ivf import IVFFlatIndex, IVFIndex
 from repro_torch.retrieval.scorers import OneBitScorer
-from repro_torch.utils import (DeviceLike, backend_to_repro, check_backend,
+from repro_torch.retrieval.segments import SegmentedIndex, _Segment
+from repro_torch.utils import (SHARD_SLICE, STORAGE_SLICE, DeviceLike,
+                               backend_to_repro, check_backend,
                                resolve_device)
 
 ARTIFACT_FORMAT = "repro-index"
-#: the one artifact version this slice reads and writes: immutable .npz
+#: immutable indexes write version 1, a SegmentedIndex version 2
 ARTIFACT_VERSION = 1
+SEGMENTED_NPZ_VERSION = 2
 
-_MUTABLE_SLICE = "slice 4 of the port (mutable, tiered and served indexes)"
-_SHARD_SLICE = "slice 5 of the port (sharded search)"
 #: artifact kinds ``repro`` writes and the port cannot load yet
-_LATER_KINDS = {
-    "SegmentedIndex": _MUTABLE_SLICE,
-    "ShardedCompressedIndex": _SHARD_SLICE, "ShardedIVFIndex": _SHARD_SLICE,
-}
+_LATER_KINDS = {"ShardedCompressedIndex": SHARD_SLICE,
+                "ShardedIVFIndex": SHARD_SLICE}
 
 #: stage-descriptor type: ``(transform class name, constructor kwargs)``
 StageSpec = Tuple[str, dict]
@@ -211,13 +217,12 @@ def build_index(spec: IndexSpec, docs, queries_sample=None, *,
 
     Returns an :class:`IVFIndex` for ``spec.ivf``, else a
     :class:`CompressedIndex`, or a :class:`DenseIndex` for
-    ``method="dense"``.  ``queries_sample`` feeds the two-population
+    ``method="dense"`` — wrapped in a :class:`SegmentedIndex` for
+    ``spec.mutable``.  ``queries_sample`` feeds the two-population
     statistics.
     """
     if spec.shard is not None:
-        raise NotImplementedError(f"sharded indexes wait for {_SHARD_SLICE}")
-    if spec.mutable:
-        raise NotImplementedError(f"mutable indexes wait for {_MUTABLE_SLICE}")
+        raise NotImplementedError(f"sharded indexes wait for {SHARD_SLICE}")
     dev = resolve_device(device)
     pipeline = spec.build_pipeline()
     if spec.ivf is not None:
@@ -238,6 +243,8 @@ def build_index(spec: IndexSpec, docs, queries_sample=None, *,
                                     sim=spec.sim, backend=spec.backend,
                                     rng=rng, device=dev)
     idx.spec = spec
+    if spec.mutable:
+        idx = SegmentedIndex(idx, spec=spec)
     return idx
 
 
@@ -269,17 +276,62 @@ def _gather_pipeline_sd(data, types: Sequence[str],
                        for t, st, f in zip(types, per_stage, fitted)]}
 
 
+def _storage_numpy(storage, scorer) -> np.ndarray:
+    """Encoded rows as ``repro`` stores them: 1-bit words as uint32."""
+    arr = _numpy(storage)
+    return arr.view(np.uint32) if isinstance(scorer, OneBitScorer) else arr
+
+
 def save_index(index, path: str) -> None:
-    """Write the version-1 ``.npz`` artifact (spec + state) — readable by
+    """Write the ``.npz`` artifact (spec + state) — version 1 for an
+    immutable index, version 2 for a :class:`SegmentedIndex` (its delta
+    segments, tombstones, allocator and drift statistics too), readable by
     ``repro.retrieval.api.load_index`` and by :func:`load_index`."""
-    if not isinstance(index, (DenseIndex, CompressedIndex, IVFIndex)):
+    if not isinstance(index, (SegmentedIndex, DenseIndex, CompressedIndex,
+                              IVFIndex)):
         raise TypeError(f"don't know how to save {type(index).__name__}")
     arrays: dict[str, np.ndarray] = {}
     meta: dict[str, Any] = {
         "format": ARTIFACT_FORMAT, "format_version": ARTIFACT_VERSION,
         "spec": index.spec.to_dict() if index.spec is not None else None,
-        "kind": type(index).__name__,
     }
+    if isinstance(index, SegmentedIndex):
+        _collect_index(index.main, arrays, meta)
+        meta["main_kind"] = meta["kind"]
+        meta["kind"] = "SegmentedIndex"
+        meta["format_version"] = SEGMENTED_NPZ_VERSION
+        sd = index.state_dict()
+        arrays["main_gids"] = np.asarray(sd["main_gids"], np.int32)
+        arrays["tombstones"] = np.asarray(sd["tombstones"], np.int64)
+        for i, seg in enumerate(sd["segments"]):
+            arrays[f"seg:{i}:storage"] = _storage_numpy(seg["storage"],
+                                                        index.scorer)
+            arrays[f"seg:{i}:gids"] = np.asarray(seg["gids"], np.int32)
+            if seg["labels"] is not None:
+                arrays[f"seg:{i}:labels"] = np.asarray(seg["labels"],
+                                                       np.int32)
+        drift = sd["drift"]
+        if drift["sum"] is not None:
+            arrays["drift:sum"] = _numpy(drift["sum"])
+        meta["segmented"] = {
+            "next_gid": int(sd["next_gid"]),
+            "n_segments": len(sd["segments"]),
+            "n_live": len(index),
+            "drift": {"n_added": int(drift["n_added"]),
+                      "norm_sum": float(drift["norm_sum"])},
+            "drift_threshold": index.drift_threshold,
+            "max_delta_fraction": index.max_delta_fraction,
+        }
+    else:
+        _collect_index(index, arrays, meta)
+    arrays["__meta__"] = np.asarray(json.dumps(meta, sort_keys=True))
+    np.savez(path, **arrays)
+
+
+def _collect_index(index, arrays: dict, meta: dict) -> None:
+    """Fill ``arrays``/``meta`` with one core index's state (the whole of
+    a version-1 artifact, the main layer of a version-2 one)."""
+    meta["kind"] = type(index).__name__
     if isinstance(index, DenseIndex):
         if len(index) == 0:
             raise ValueError("cannot save an empty index")
@@ -293,10 +345,7 @@ def save_index(index, path: str) -> None:
             raise ValueError("cannot save an empty index")
         meta["stages"] = pipeline_spec(index.pipeline)
         meta["stage_fitted"] = _flatten_pipeline_sd(sd["pipeline"], arrays)
-        storage = _numpy(sd["storage"])
-        if isinstance(index.scorer, OneBitScorer):
-            storage = storage.view(np.uint32)    # repro's word dtype
-        arrays["storage"] = storage
+        arrays["storage"] = _storage_numpy(sd["storage"], index.scorer)
         meta["index"] = {
             "sim": index.sim, "backend": backend_to_repro(index.backend),
             "n_docs": int(sd["n_docs"]), "dim": int(sd["dim"]),
@@ -317,8 +366,6 @@ def save_index(index, path: str) -> None:
                 "balanced": bool(sd["balanced"]),
                 "kmeans_iters": int(index.kmeans_iters),
             })
-    arrays["__meta__"] = np.asarray(json.dumps(meta, sort_keys=True))
-    np.savez(path, **arrays)
 
 
 def _parse_meta(data, path: str) -> dict:
@@ -331,11 +378,12 @@ def _parse_meta(data, path: str) -> dict:
         raise ValueError(f"{path}: unknown artifact format "
                          f"{meta.get('format')!r}")
     version = meta.get("format_version", 0)
-    if version != ARTIFACT_VERSION:
+    if version not in (ARTIFACT_VERSION, SEGMENTED_NPZ_VERSION):
         raise NotImplementedError(
             f"{path}: artifact version {version} is not readable yet — the "
-            f"port reads version {ARTIFACT_VERSION} (.npz); mutable (v2) "
-            f"and chunked (v3) artifacts wait for {_MUTABLE_SLICE}")
+            f"port reads versions {ARTIFACT_VERSION} and "
+            f"{SEGMENTED_NPZ_VERSION} (.npz); chunked (v3) artifacts wait "
+            f"for {STORAGE_SLICE}")
     return meta
 
 
@@ -343,13 +391,14 @@ def _check_npz(path: str) -> None:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: chunked (v3) artifact directories wait for "
-            f"{_MUTABLE_SLICE}")
+            f"{STORAGE_SLICE}")
 
 
 def load_index(path: str, *, backend: Optional[str] = None,
                expect: Optional[type] = None, device: DeviceLike = None):
-    """Reconstruct an index from a version-1 ``.npz`` artifact on
-    ``device`` (``None``: CUDA) — written by this package or by ``repro``.
+    """Reconstruct an index from a version-1 or version-2 ``.npz``
+    artifact on ``device`` (``None``: CUDA) — written by this package or
+    by ``repro``.
 
     No corpus, no re-fit, no re-encode.  ``backend`` overrides the stored
     scorer backend; ``expect`` asserts the artifact kind.
@@ -359,32 +408,14 @@ def load_index(path: str, *, backend: Optional[str] = None,
     with np.load(path, allow_pickle=False) as data:
         meta = _parse_meta(data, path)
         kind = meta["kind"]
-        m = meta["index"]
-        if kind == "DenseIndex":
-            idx = DenseIndex(data["storage"], sim=m["sim"], device=dev,
-                             backend=backend or "auto")
-        elif kind == "CompressedIndex":
-            pipeline = (build_pipeline_from_spec(meta["stages"])
-                        if meta["stages"] else CompressionPipeline([]))
-            idx = CompressedIndex(pipeline, sim=m["sim"],
-                                  backend=backend or m["backend"],
-                                  device=dev)
-            idx.load_state_dict({
-                "pipeline": _gather_pipeline_sd(
-                    data, [n for n, _ in meta["stages"]],
-                    meta["stage_fitted"]),
-                "storage": data["storage"],
-                "scorer_extra": m.get("scorer_extra", {}),
-                "n_docs": m["n_docs"], "dim": m["dim"],
-                "version": m.get("version", 0)})
-        elif kind in ("IVFIndex", "IVFFlatIndex"):
-            idx = _rebuild_ivf(meta, data, backend, kind, dev)
-        elif kind in _LATER_KINDS:
-            raise NotImplementedError(
-                f"{path} holds a {kind}, which waits for "
-                f"{_LATER_KINDS[kind]}")
+        if kind == "SegmentedIndex":
+            main = _load_core(meta["main_kind"], meta, data, path, backend,
+                              dev)
+            if meta.get("spec") is not None:
+                main.spec = IndexSpec.from_dict(meta["spec"])
+            idx = _wrap_segmented(main, meta, data)
         else:
-            raise ValueError(f"{path}: unknown index kind {kind!r}")
+            idx = _load_core(kind, meta, data, path, backend, dev)
     if meta.get("spec") is not None:
         idx.spec = IndexSpec.from_dict(meta["spec"])
     if expect is not None and not isinstance(idx, expect):
@@ -392,6 +423,61 @@ def load_index(path: str, *, backend: Optional[str] = None,
                         f"{expect.__name__} — use api.load_index for "
                         "kind-dispatching loads")
     return idx
+
+
+def _load_core(kind: str, meta: dict, data, path: str,
+               backend: Optional[str], device: torch.device):
+    """One core (non-segmented) index from the artifact's arrays."""
+    m = meta["index"]
+    if kind == "DenseIndex":
+        return DenseIndex(data["storage"], sim=m["sim"], device=device,
+                          backend=backend or "auto")
+    if kind == "CompressedIndex":
+        pipeline = (build_pipeline_from_spec(meta["stages"])
+                    if meta["stages"] else CompressionPipeline([]))
+        idx = CompressedIndex(pipeline, sim=m["sim"],
+                              backend=backend or m["backend"], device=device)
+        return idx.load_state_dict({
+            "pipeline": _gather_pipeline_sd(
+                data, [n for n, _ in meta["stages"]], meta["stage_fitted"]),
+            "storage": data["storage"],
+            "scorer_extra": m.get("scorer_extra", {}),
+            "n_docs": m["n_docs"], "dim": m["dim"],
+            "version": m.get("version", 0)})
+    if kind in ("IVFIndex", "IVFFlatIndex"):
+        return _rebuild_ivf(meta, data, backend, kind, device)
+    if kind in _LATER_KINDS:
+        raise NotImplementedError(f"{path} holds a {kind}, which waits for "
+                                  f"{_LATER_KINDS[kind]}")
+    raise ValueError(f"{path}: unknown index kind {kind!r}")
+
+
+def _wrap_segmented(main, meta: dict, data) -> SegmentedIndex:
+    """Restore the mutable layer (segments, tombstones, allocator, drift)
+    around a loaded main, as ``repro`` does."""
+    seg_info = meta["segmented"]
+    idx = SegmentedIndex(
+        main, drift_threshold=seg_info.get("drift_threshold", 0.35),
+        max_delta_fraction=seg_info.get("max_delta_fraction", 0.25))
+    segments = []
+    for i in range(seg_info["n_segments"]):
+        lkey = f"seg:{i}:labels"
+        labels = (np.asarray(data[lkey], np.int32)
+                  if lkey in data.files else None)
+        segments.append(_Segment(
+            storage_tensor(data[f"seg:{i}:storage"], main.device),
+            np.asarray(data[f"seg:{i}:gids"], np.int32), labels))
+    next_gid = int(seg_info["next_gid"])
+    tomb = np.zeros(next_gid, bool)
+    tomb[np.asarray(data["tombstones"], np.int64)] = True
+    drift_m = seg_info["drift"]
+    return idx._restore(
+        main_gids=np.asarray(data["main_gids"], np.int32), tomb=tomb,
+        next_gid=next_gid, segments=segments,
+        drift_sd={"n_added": drift_m["n_added"],
+                  "norm_sum": drift_m["norm_sum"],
+                  "sum": (data["drift:sum"]
+                          if "drift:sum" in data.files else None)})
 
 
 def _rebuild_ivf(meta: dict, data, backend: Optional[str], kind: str,
@@ -450,29 +536,36 @@ def npz_member_nbytes(path: str) -> dict[str, int]:
     return out
 
 
+def _is_seg_storage(name: str) -> bool:
+    return name.startswith("seg:") and name.endswith(":storage")
+
+
 def load_index_meta(path: str) -> dict:
     """An artifact's identity header without materialising any arrays.
 
     The same fields and fingerprint as ``repro``'s ``load_index_meta`` for
-    a version-1 artifact: ``encoded_nbytes`` is the document storage,
-    ``aux_nbytes`` everything else but the header.
+    a version-1 or version-2 artifact: ``encoded_nbytes`` is the document
+    storage (the main layer and any delta segments), ``aux_nbytes``
+    everything else but the header.
     """
     _check_npz(path)
     with np.load(path, allow_pickle=False) as data:
         meta = _parse_meta(data, path)
     sizes = npz_member_nbytes(path)
-    encoded = sizes.get("storage", 0)
+    encoded = sizes.get("storage", 0) + sum(
+        v for k, v in sizes.items() if _is_seg_storage(k))
     aux = sum(v for k, v in sizes.items() if k != "__meta__") - encoded
     m = meta.get("index") or {}
+    seg = meta.get("segmented")
     return {
         "format_version": meta.get("format_version"),
         "artifact_version": meta.get("format_version"),
         "kind": meta["kind"],
         "spec": meta.get("spec"),
-        "n_docs": m.get("n_docs"),
+        "n_docs": seg["n_live"] if seg is not None else m.get("n_docs"),
         "dim": m.get("dim"),
         "index_version": m.get("version", 0),
-        "mutable": False,
+        "mutable": seg is not None,
         "encoded_nbytes": int(encoded),
         "aux_nbytes": int(aux),
         "fingerprint": hashlib.sha256(

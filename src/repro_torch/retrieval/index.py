@@ -26,6 +26,7 @@ from repro_torch.core.preprocess import as_tensor
 from repro_torch.core.quantization import words_from_numpy
 from repro_torch.kernels.topk_blocks.ops import streaming_topk
 from repro_torch.retrieval.scorers import (Scorer, apply_float_stages,
+                                           encode_storage,
                                            scorer_for_pipeline)
 from repro_torch.retrieval.topk import resolve_k, topk_search
 from repro_torch.utils import (DeviceLike, check_backend, chunked,
@@ -131,10 +132,8 @@ class CompressedIndex:
         return idx
 
     def add(self, docs) -> "CompressedIndex":
-        x = apply_float_stages(self.float_stages,
-                               as_tensor(docs, self.device), "docs")
-        self._dim = int(x.shape[-1])
-        enc = self.scorer.encode_docs(x)
+        enc, self._dim = encode_storage(self.float_stages, self.scorer,
+                                        as_tensor(docs, self.device))
         self.storage = (enc if self.storage is None
                         else torch.cat([self.storage, enc]))
         self._n_docs = int(self.storage.shape[0])

@@ -24,7 +24,8 @@ which gives ``lax.top_k``'s lowest-index-first order.  ``fit`` clamps the
 effective ``nlist`` to the corpus size (a cluster that k-means leaves
 empty is an all-pad list); ``search`` returns ``min(k, n_docs)`` columns,
 with (−inf, −1) in slots no probed list can fill.  Store-backed (tiered)
-search waits for slice 4 of the port.
+search waits for the storage slice of the port (ROADMAP A.9): every index
+here is fully resident.
 """
 
 from __future__ import annotations
@@ -43,12 +44,11 @@ from repro_torch.retrieval.scorers import (Scorer, apply_float_stages,
 from repro_torch.retrieval.topk import (NEG_INF, merge_topk_block, resolve_k,
                                         resolve_nprobe, similarity,
                                         topk_score_then_id)
-from repro_torch.utils import DeviceLike, check_backend, cdiv, resolve_device
+from repro_torch.utils import (STORAGE_SLICE, DeviceLike, check_backend,
+                               cdiv, resolve_device)
 
 __all__ = ["IVFIndex", "IVFFlatIndex", "build_padded_lists",
            "probe_and_score", "route"]
-
-_STORE_SLICE = "slice 4 of the port (mutable, tiered and served indexes)"
 
 #: probed lists gathered and scored per streaming step; the merge is
 #: associative under the strict order, so any grouping ranks the same
@@ -168,6 +168,7 @@ class IVFIndex:
         self.lists: Optional[torch.Tensor] = None      # (nlist, L) i32, −1 pad
         self.storage: Optional[torch.Tensor] = None    # scorer-encoded rows
         self.spec = None               # set by api.build_index / api.load_index
+        self.store = None              # tiered list store: the storage slice
         self._labels: Optional[np.ndarray] = None      # (n_docs,) cluster ids
         self._n_docs = 0
         self._dim = 0
@@ -200,7 +201,8 @@ class IVFIndex:
     def fit(self, docs, rng: Optional[torch.Generator] = None,
             train_size: int = 100_000) -> "IVFIndex":
         """Encode ``docs`` through the (fitted) pipeline and build the
-        router and the inverted lists."""
+        router and the inverted lists.  Routing needs the float rows, so
+        the encode stays staged here (no one-pass ``fused_quantize``)."""
         x = apply_float_stages(self.float_stages,
                                as_tensor(docs, self.device), "docs")
         if self.residual:
@@ -282,7 +284,8 @@ class IVFIndex:
         return self._finish_install(storage, torch.zeros((0, dim)))
 
     def add(self, docs) -> "IVFIndex":
-        """Append docs, routed to the *existing* centroids (no refit)."""
+        """Append docs, routed to the *existing* centroids (no refit); the
+        encode is staged, as in :meth:`fit`, for the float routing rows."""
         if self.centroids is None:
             return self.fit(docs)
         x = apply_float_stages(self.float_stages,
@@ -429,8 +432,13 @@ class IVFIndex:
         return torch.cat(vals), torch.cat(ids).long()
 
     def prefetch(self, queries, nprobe: Optional[int] = None) -> int:
+        """Warm a store-backed index's hot tier with the probe table for
+        ``queries``; returns the lists touched — 0 on a fully resident
+        index, which every index of the port is."""
+        if self.store is None:
+            return 0
         raise NotImplementedError(
-            f"store-backed IVF search (prefetch) waits for {_STORE_SLICE}")
+            f"store-backed IVF search (prefetch) waits for {STORAGE_SLICE}")
 
     # -- persistence -------------------------------------------------------
     def state_dict(self) -> dict:

@@ -229,6 +229,28 @@ def apply_float_stages(stages, x: torch.Tensor, kind: str) -> torch.Tensor:
     return x
 
 
+def encode_storage(float_stages, scorer: Scorer, docs: torch.Tensor
+                   ) -> tuple[torch.Tensor, int]:
+    """Docs → (storage rows, width of the float rows) through the frozen
+    stages: the doc encode of an index build and of a live add.
+
+    With kernel numerics, the paper's pre+post-normalized 24× recipe
+    (``[CenterNorm, PCA, CenterNorm]`` + int8) encodes in one pass through
+    ``fused_quantize`` — the same function as the staged pair below, whose
+    rows do not depend on the batch on the card.  Anything else runs the
+    float stages, then the scorer's encode.
+    """
+    if isinstance(scorer, Int8Scorer) and scorer.use_kernel(docs):
+        from repro_torch.kernels.fused_quantize import ops as fq_ops
+        stages = [*float_stages, scorer.quantizer]
+        if fq_ops.fusable(stages):
+            codes = fq_ops.fused_quantize(docs, stages, "docs",
+                                          use_kernel=True)
+            return codes, int(codes.shape[-1])
+    x = apply_float_stages(float_stages, docs, "docs")
+    return scorer.encode_docs(x), int(x.shape[-1])
+
+
 def _factory_for(quantizer: Transform) -> Optional[Callable[..., Scorer]]:
     factory = _SCORER_FOR_QUANTIZER.get(type(quantizer))
     if factory is not None:

@@ -14,6 +14,8 @@ from repro_torch.data import make_dpr_like_kb as port_kb  # noqa: E402
     dict(n_queries=17, n_docs=333, d=96, r_eff=40, seed=7,
          spans_per_article=3),
     dict(n_queries=8, n_docs=64, d=768, seed=11),
+    # several of the generator's 16,384-row blocks, the last one ragged
+    dict(n_queries=16, n_docs=40_000, d=64, r_eff=32, seed=3),
 ])
 def test_kb_byte_identical(kwargs):
     want = repro_kb(**kwargs)

@@ -200,11 +200,18 @@ def test_load_index_meta_matches_repro(kb, tmp_path):
 
 def test_later_slices_raise_not_implemented(kb, tmp_path):
     docs = np.asarray(kb.docs)
-    for kw in (dict(mutable=True), dict(shard=p_api.ShardSpec())):
-        with pytest.raises(NotImplementedError, match="slice"):
-            p_api.build_index(p_api.IndexSpec(method="pca_int8", dim=16,
-                                              post=False, **kw),
-                              docs, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        p_api.build_index(p_api.IndexSpec(method="pca_int8", dim=16,
+                                          post=False,
+                                          shard=p_api.ShardSpec()),
+                          docs, device="cpu")
+    # mutable indexes build since the mutable slice
+    seg = p_api.build_index(p_api.IndexSpec(method="pca_int8", dim=16,
+                                            post=False, mutable=True),
+                            docs, device="cpu")
+    assert type(seg).__name__ == "SegmentedIndex" and len(seg) == len(docs)
+    with pytest.raises(NotImplementedError, match="storage slice"):
+        p_api.load_index(str(tmp_path), device="cpu")
     # IVF builds and loads since slice 2
     spec = p_api.IndexSpec(method="pca_int8", dim=16, post=False, ivf=(8, 2))
     built = p_api.build_index(spec, docs, device="cpu")
@@ -265,7 +272,8 @@ def test_port_imports_neither_jax_nor_repro():
 def test_kernel_sources_sit_beside_the_package():
     csrc = REPO / "src" / "repro_torch" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
-        "binary_ip.cu", "int8_ip.cu", "ivf_fused.cu", "topk_blocks.cu"]
+        "binary_ip.cu", "fused_quantize.cu", "int8_ip.cu", "ivf_fused.cu",
+        "topk_blocks.cu"]
     for src in csrc.glob("*.cu"):
         text = src.read_text()
         assert "src/repro/kernels/" in text and "Bound on an H100" in text

@@ -260,8 +260,7 @@ def test_empty_corpus_and_bad_arguments_raise():
             ivf.search(docs[:2], 3, nprobe=bad)
     with pytest.raises(ValueError, match="not fitted"):
         IVFIndex(device="cpu").search(docs[:2], 3)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ivf.prefetch(docs[:2])
+    assert ivf.prefetch(docs[:2]) == 0         # fully resident, as repro
 
 
 def test_add_after_to_ivf_makes_the_view_raise(kb):

@@ -31,27 +31,28 @@ from repro_torch.kernels.ivf_fused.ref import BACKENDS  # noqa: E402
 NLIST, L, DIM, Q = 24, 40, 48, 12
 
 
-def _case(backend, nprobe, with_base, seed=0):
+def _case(backend, nprobe, with_base, seed=0, length=L):
     """Seeded list-major inputs: numpy for repro, tensors for the port."""
     rng = np.random.default_rng(seed)
-    ids = rng.permutation(NLIST * L).astype(np.int32).reshape(NLIST, L)
-    ids[rng.random((NLIST, L)) < 0.2] = -1          # ragged lists
+    ids = rng.permutation(NLIST * length).astype(np.int32) \
+        .reshape(NLIST, length)
+    ids[rng.random((NLIST, length)) < 0.2] = -1     # ragged lists
     ids[3] = -1                                      # an all-pad list
-    ids = np.sort(np.where(ids < 0, NLIST * L, ids), axis=1)
-    ids[ids == NLIST * L] = -1                       # pads at the tail
+    ids = np.sort(np.where(ids < 0, NLIST * length, ids), axis=1)
+    ids[ids == NLIST * length] = -1                  # pads at the tail
     q = rng.standard_normal((Q, DIM)).astype(np.float32)
     params = {}
     if backend == "float":
-        store = rng.standard_normal((NLIST, L, DIM)).astype(np.float32)
+        store = rng.standard_normal((NLIST, length, DIM)).astype(np.float32)
     elif backend == "fp16":
-        store = rng.standard_normal((NLIST, L, DIM)).astype(np.float16)
+        store = rng.standard_normal((NLIST, length, DIM)).astype(np.float16)
     elif backend == "int8":
-        store = rng.integers(0, 256, (NLIST, L, DIM)).astype(np.uint8)
+        store = rng.integers(0, 256, (NLIST, length, DIM)).astype(np.uint8)
         params = {"scale": rng.uniform(0.001, 0.02, DIM).astype(np.float32),
                   "zero": rng.uniform(-1, 0, DIM).astype(np.float32)}
     else:   # 45 dims → 2 words: the query signs are padded with −1
         q = q[:, :45]
-        store = rng.integers(0, 2**32, (NLIST, L, 2),
+        store = rng.integers(0, 2**32, (NLIST, length, 2),
                              dtype=np.uint64).astype(np.uint32)
     store[ids < 0] = 0
     probes = np.stack([rng.permutation(NLIST)[:nprobe]
@@ -129,6 +130,25 @@ def test_k_beyond_the_reachable_candidates_pads_the_tail(backend):
     assert_same_ranking(got, _repro(backend, 100, *case),
                         exact=backend == "onebit")
     assert (got[1][:, -1] == -1).all() and np.isneginf(got[0][:, -1]).all()
+
+
+def test_k_above_the_shared_memory_top_k_matches_repro():
+    """k = 1100 > MAX_K: the card keeps the running top-k in a global
+    scratch; the wrapper takes any k, and its plain version ranks as
+    ``repro``'s interpret-mode kernel does.  int8, the main path's backend,
+    only: ``repro`` unrolls its merge into k rounds, ~2 minutes of tracing
+    and compiling at this k whatever the shapes."""
+    backend = "int8"
+    q, store, ids, probes, params, extra = _case(backend, 2, True, seed=5,
+                                                 length=800)
+    keep = (probes != 3).all(axis=1)[:3]     # not the all-pad list
+    case = (q[:3][keep], store, ids, probes[:3][keep], params,
+            extra[:3][keep])
+    got = _port(backend, 1100, *case)
+    assert got[0].shape == (int(keep.sum()), 1100) and MAX_K < 1100
+    assert (got[1][:, -1] >= 0).all()        # every slot holds a real row
+    assert_same_ranking(got, _repro(backend, 1100, *case),
+                        exact=backend == "onebit")
 
 
 def test_prepare_queries_matches_repro():
