@@ -10,8 +10,11 @@ Phases, each printed as it runs:
    ``build/`` (one process per source, in parallel).
 3. kernels — each Hopper kernel (int8_ip, binary_ip, topk_blocks,
    fused_ivf_topk, fused_quantize) runs on the card at the main path's
-   shapes (Q=256, D=1M; d=128 int8, 8 words 1-bit; top-k at k=10 and
-   k=100, and 1,010 as an exact main probed past 1,000 tombstones; IVF
+   shapes (Q=256, D=1M; d=128 int8 with and without its q·zero bias, 8
+   words 1-bit; top-k at k=10, 100 and 1,010 — an exact main probed past
+   1,000 tombstones — on random and tie-heavy scores, each with the
+   two-stage time; ragged int8 widths and alignments, ±0.0 ties and blocks
+   above 32,768 columns; IVF
    with nlist 1024, lists of 1221 rows, 64 probes, k=10, k=1025/2048
    above the shared-memory top-k, and int8 at k=16,384 and 282,778, the
    deepest probe of the seg_ivf_24x cell before it needs a compaction;
@@ -23,9 +26,10 @@ Phases, each printed as it runs:
    fused_quantize codes within 1 on < 1% (repro's bar) and each row's
    codes independent of the batch (bit for bit).  Timed with CUDA events
    beside the plain version, one PyTorch library call (``library_ms``,
-   used nowhere in the port; none gathers, scores and ranks per probe, so
-   null for IVF; the product alone for fused_quantize) and the card's
-   bound.
+   used nowhere in the port: a bf16 ``torch.mm`` writing f32 for int8_ip,
+   ``torch.topk`` for topk_blocks; none gathers, scores and ranks per
+   probe, so null for IVF; the product alone for fused_quantize) and the
+   card's bound.
 4. main path — a synthetic DPR-like KB (768-dim f32, ``--n-docs`` docs;
    both KBs are made on the host in worker threads while phases 2–3 run)
    indexed with the paper's 24× recipe (PCA-128 + int8) and 100× recipe
@@ -185,17 +189,65 @@ def phase_build() -> None:
             print(f"[build] {line.strip()}")
 
 
+#: int8_ip edges: (Q, D, d, row offset of the codes).  Partial tiles; d
+#: zero-padded to 64 (48, 100, 77, 24); rows that take 4-byte (100), 8-byte
+#: (24 at an odd row offset) and 1-byte (77) copies; 128 queries a CTA up to
+#: d = 256, 64 at 384, 32 at 768 (the float-free int8 recipe) and 2048.
+INT8_RAGGED = ((5, 37, 48, 0), (130, 1000, 100, 0), (1, 3, 128, 0),
+               (33, 517, 77, 0), (300, 2000, 24, 1), (70, 999, 768, 0),
+               (40, 300, 384, 0), (9, 129, 2048, 0), (257, 4099, 128, 3))
+
+
+def topk_ragged_cases(gen):
+    """topk_blocks edges: (scores, k, block_d).  Partial blocks, k > block_d,
+    −inf-heavy rows, ties (integers, one repeated value, a few ones), ±0.0
+    ties, denormals, the block kernel at k ≤ 32 (block 4096), a block above
+    32,768 (read from global memory), a sort above 8,192 (global scratch)
+    and rows that do not start 16 bytes apart (D = 1001)."""
+    dev = "cuda"
+    ties = torch.arange(16, device=dev).flip(0).div(2, rounding_mode="floor")
+    zeros = torch.zeros(4, 40, device=dev)
+    zeros[:, ::3] = -0.0
+    zeros[:, 5] = 1.0
+    zeros[1, 7:] = float("-inf")
+    sparse = torch.randn(10, 333, device=dev, generator=gen).masked_fill_(
+        torch.rand(10, 333, device=dev, generator=gen) < 0.9, float("-inf"))
+    return [
+        (torch.randn(3, 50, device=dev, generator=gen), 10, 16),
+        (torch.randn(4, 20, device=dev, generator=gen), 20, 8),
+        (sparse, 7, 64), (ties.float().repeat(3, 1), 5, 4),
+        (zeros, 6, 16), (zeros, 30, 32),
+        ((torch.randint(-3, 4, (3, 3000), device=dev, generator=gen) * 0.25)
+         .float(), 100, 1024),
+        (torch.ones(3, 2500, device=dev), 10, 1024),
+        ((torch.rand(4, 3000, device=dev, generator=gen) < 0.05).float(), 10,
+         1024),
+        (torch.randn(6, 1024, device=dev, generator=gen).mul(1e-42), 17, 1024),
+        (torch.randn(5, 9000, device=dev, generator=gen), 25, 4096),
+        (torch.randn(2, 1001, device=dev, generator=gen), 13, 333),
+        (torch.randn(4, 100_000, device=dev, generator=gen), 50, 65_536),
+        ((torch.randint(-40, 40, (3, 70_000), device=dev, generator=gen)
+          * 0.25).float(), 300, 40_000),
+        (torch.randn(3, 40_000, device=dev, generator=gen), 9000, 32_768)]
+
+
 def check_ragged_shapes(gen) -> None:
     """Edges the main path's shapes miss: partial tiles, d not a multiple
-    of the staging width, k > block_d, −inf scores and ties."""
+    of the staging width, unaligned rows, k > block_d, −inf scores, ties,
+    ±0.0 and blocks beyond shared memory."""
     dev = "cuda"
-    for q, d, dim in ((5, 37, 48), (130, 1000, 100), (1, 3, 128)):
+    for q, d, dim, off in INT8_RAGGED:
         qs = torch.randn(q, dim, device=dev, generator=gen).to(torch.bfloat16)
-        u8 = torch.randint(0, 256, (d, dim), device=dev, generator=gen,
-                           dtype=torch.uint8)
-        got, want = int8_ip(qs, u8), int8_ip_ref(qs, u8)
-        if float((got - want).abs().max()) > 1e-5 * float(want.abs().max()):
-            raise AssertionError(f"int8_ip disagrees at {(q, d, dim)}")
+        u8 = torch.randint(0, 256, (d + off, dim), device=dev, generator=gen,
+                           dtype=torch.uint8)[off:]
+        bias = torch.randn(q, device=dev, generator=gen)
+        for b in (None, bias):
+            got, want = int8_ip(qs, u8, b), int8_ip_ref(qs, u8, b)
+            err = float((got - want).abs().max())
+            if err > 1e-5 * float(want.abs().max()):
+                raise AssertionError(f"int8_ip disagrees at {(q, d, dim)} "
+                                     f"offset {off}, bias {b is not None}: "
+                                     f"{err:.3g}")
     for q, d, n_words in ((7, 33, 2), (65, 130, 3), (1, 1, 1), (9, 70, 9)):
         signs = (torch.randint(0, 2, (q, 32 * n_words), device=dev,
                                generator=gen) * 2 - 1).to(torch.int8)
@@ -204,20 +256,15 @@ def check_ragged_shapes(gen) -> None:
         if not torch.equal(binary_ip(signs, words),
                            sign_dot_ref(signs, words)):
             raise AssertionError(f"binary_ip disagrees at {(q, d, n_words)}")
-    ties = torch.arange(16, device=dev).flip(0).div(2, rounding_mode="floor")
-    for scores, k, bd in (
-            (torch.randn(3, 50, device=dev, generator=gen), 10, 16),
-            (torch.randn(4, 20, device=dev, generator=gen), 20, 8),
-            (torch.randn(10, 333, device=dev, generator=gen)
-             .masked_fill_(torch.rand(10, 333, device=dev, generator=gen)
-                           < 0.9, float("-inf")), 7, 64),
-            (ties.float().repeat(3, 1), 5, 4)):
+    for scores, k, bd in topk_ragged_cases(gen):
         got, want = topk_blocks(scores, k, bd), topk_blocks_ref(scores, k, bd)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"topk_blocks disagrees at "
                                  f"{tuple(scores.shape)} k={k} block_d={bd}")
     torch.cuda.synchronize()
-    print("[kernel] ragged shapes, k > block_d, -inf and ties: all exact")
+    print("[kernel] ragged shapes (int8_ip with and without bias), k > "
+          "block_d, -inf, ties, +-0.0, blocks above 32768: int8_ip within "
+          "1e-5*max, topk_blocks exact")
 
 
 def phase_kernels(rates) -> list[dict]:
@@ -232,29 +279,39 @@ def phase_kernels(rates) -> list[dict]:
         .mul_(0.01).to(torch.bfloat16)
     codes = torch.randint(0, 256, (D_MAIN, D_INT8), device=dev,
                           generator=gen, dtype=torch.uint8)
-    got, want = int8_ip(q_scaled, codes), int8_ip_ref(q_scaled, codes)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    tol = 1e-5 * float(want.abs().max())
-    ok = err <= tol
-    print(f"[kernel] int8_ip (256, 1M, d=128): max_abs_err {err:.3g} "
-          f"(tol {tol:.3g}) {'ok' if ok else 'MISMATCH'}")
-    if not ok:
-        raise AssertionError("int8_ip disagrees with int8_ip_ref")
+    bias = torch.randn(Q, device=dev, generator=gen)   # the path's q·zero
+    err = 0.0
+    for b in (None, bias):
+        got, want = int8_ip(q_scaled, codes, b), int8_ip_ref(q_scaled, codes, b)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        tol = 1e-5 * float(want.abs().max())
+        print(f"[kernel] int8_ip (256, 1M, d=128), bias {b is not None}: "
+              f"max_abs_err {e:.3g} (tol {tol:.3g}) "
+              f"{'ok' if e <= tol else 'MISMATCH'}")
+        if e > tol:
+            raise AssertionError("int8_ip disagrees with int8_ip_ref")
+        err = max(err, e)
+        del got, want
     docs_bf16 = codes.to(torch.bfloat16)
-    b_ms, b_by = bound(Q * D_INT8 * 2 + D_MAIN * D_INT8 + Q * D_MAIN * 4,
-                       2.0 * Q * D_MAIN * D_INT8, bf16_rate, byte_rate)
+    b_ms, b_by = bound(Q * D_INT8 * 2 + D_MAIN * D_INT8 + Q * 4
+                       + Q * D_MAIN * 4, 2.0 * Q * D_MAIN * D_INT8,
+                       bf16_rate, byte_rate)
     out.append({
         "name": "int8_ip", "route": "cuda",
         "source": "src/repro_torch/csrc/int8_ip.cu",
         "replaces": "src/repro/kernels/int8_ip/kernel.py:51",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: int8_ip(q_scaled, codes), 20),
-        "plain_ms": cuda_ms(lambda: int8_ip_ref(q_scaled, codes), 5),
+        "ms": cuda_ms(lambda: int8_ip(q_scaled, codes, bias), 20),
+        "ms_no_bias": cuda_ms(lambda: int8_ip(q_scaled, codes), 20),
+        "plain_ms": cuda_ms(lambda: int8_ip_ref(q_scaled, codes, bias), 5),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.mm(q_scaled, docs_bf16.T), 20),
-        "shape": "Q=256 D=1000000 d=128"})
-    del got, want, docs_bf16, codes
+        # the yardstick: one bf16 product that writes f32, as the kernel does
+        "library_ms": cuda_ms(lambda: torch.mm(
+            q_scaled, docs_bf16.T, out_dtype=torch.float32), 20),
+        "library_call": "torch.mm(bf16, bf16, out_dtype=float32)",
+        "shape": "Q=256 D=1000000 d=128, bias (Q,)"})
+    del docs_bf16, codes
 
     # -- binary_ip: (Q, 256) ±1 signs × (1M, 8) words -----------------
     d_packed = 32 * W_ONEBIT
@@ -288,27 +345,40 @@ def phase_kernels(rates) -> list[dict]:
         "shape": "Q=256 D=1000000 words=8"})
     del docs_pm, signs_h, words
 
-    # -- topk_blocks: (Q, 1M) f32, k=10 and k=100, random and tie-heavy --
+    # -- topk_blocks: (Q, 1M) f32 at k = 10 (the main path), 100 and 1,010
+    #    (an exact segmented main probed k + #dead(main) deep), random and
+    #    tie-heavy scores: stage 1 bit for bit against its plain version,
+    #    both stages against the full-row top-k, and their times
     normal = torch.randn(Q, D_MAIN, device=dev, generator=gen)
     entry = None
-    for k in (K, 100):
+    for k in (K, 100, TOPK_DEEP):
         bd = default_block_d(k)
+        plain_ms = None
         for label, scores in (("normal", normal), ("ties", tie_scores)):
             gv, gi = topk_blocks(scores, k, bd)
-            wv, wi = topk_blocks_ref(scores, k, bd)
-            torch.cuda.synchronize()
-            same = torch.equal(gv, wv) and torch.equal(gi, wi)
-            print(f"[kernel] topk_blocks (256, 1M) k={k} {label}: "
-                  f"{'exact' if same else 'MISMATCH'}")
-            if not same:
-                raise AssertionError(f"topk_blocks k={k} ({label}) disagrees "
-                                     "with topk_blocks_ref")
+            if k < TOPK_DEEP or label == "normal":
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                wv, wi = topk_blocks_ref(scores, k, bd)
+                end.record()
+                torch.cuda.synchronize()
+                if label == "normal":
+                    plain_ms = start.elapsed_time(end)
+                same = torch.equal(gv, wv) and torch.equal(gi, wi)
+                print(f"[kernel] topk_blocks (256, 1M) k={k} block_d={bd} "
+                      f"{label}: {'exact' if same else 'MISMATCH'}")
+                if not same:
+                    raise AssertionError(f"topk_blocks k={k} ({label}) "
+                                         "disagrees with topk_blocks_ref")
+                del wv, wi
             # two stages against lax.top_k's order on the full row
             fv, fi = streaming_topk(scores, k, use_kernel=True)
             rv, ri = streaming_topk(scores, k, use_kernel=False)
             if not (torch.equal(fv, rv) and torch.equal(fi, ri)):
                 raise AssertionError(f"streaming_topk k={k} ({label}) "
                                      "disagrees with the full-row top-k")
+            del gv, gi, fv, fi, rv, ri
         n_blocks = -(-D_MAIN // bd)
         b_ms, b_by = bound(Q * D_MAIN * 4 + Q * n_blocks * k * 8,
                            float(Q * D_MAIN), f32_rate, byte_rate)
@@ -316,31 +386,24 @@ def phase_kernels(rates) -> list[dict]:
             "name": "topk_blocks", "route": "cuda",
             "source": "src/repro_torch/csrc/topk_blocks.cu",
             "replaces": "src/repro/kernels/topk_blocks/kernel.py:75",
-            "max_abs_err": float((gv - wv).abs().max()),
+            "max_abs_err": 0.0,
             "ms": cuda_ms(lambda: topk_blocks(normal, k, bd), 10),
-            "plain_ms": cuda_ms(lambda: topk_blocks_ref(normal, k, bd), 2),
+            "ms_ties": cuda_ms(lambda: topk_blocks(tie_scores, k, bd), 10),
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(lambda: torch.topk(normal, k), 10),
             "two_stage_ms": cuda_ms(
                 lambda: streaming_topk(normal, k, use_kernel=True), 10),
             "shape": f"Q=256 D=1000000 k={k} block_d={bd}"}
         print(f"[kernel] topk_blocks k={k}: {json.dumps(rec)}")
-        if k == K:
+        if entry is None:
             entry = rec
+        else:
+            entry[f"k{k}"] = {key: rec[key] for key in (
+                "ms", "ms_ties", "plain_ms", "bound_ms", "library_ms",
+                "two_stage_ms", "shape")}
     out.append(entry)
-    # the exact main probed 1,010 deep (#dead(main) = 1,000): two stages
-    # against the full-row top-k, and the stage-1 time
-    bd = default_block_d(TOPK_DEEP)
-    fv, fi = streaming_topk(normal, TOPK_DEEP, use_kernel=True)
-    rv, ri = streaming_topk(normal, TOPK_DEEP, use_kernel=False)
-    if not (torch.equal(fv, rv) and torch.equal(fi, ri)):
-        raise AssertionError(f"streaming_topk k={TOPK_DEEP} disagrees with "
-                             "the full-row top-k")
-    entry[f"k{TOPK_DEEP}_ms"] = cuda_ms(
-        lambda: topk_blocks(normal, TOPK_DEEP, bd), 1)
-    print(f"[kernel] topk_blocks (256, 1M) k={TOPK_DEEP} block_d={bd}: two "
-          f"stages exact; stage 1 {entry[f'k{TOPK_DEEP}_ms']:.3f} ms")
-    del normal, tie_scores, fv, fi, rv, ri
+    del normal, tie_scores
     for rec in out[:2]:
         print(f"[kernel] {rec['name']}: {json.dumps(rec)}")
     torch.cuda.empty_cache()

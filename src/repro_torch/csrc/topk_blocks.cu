@@ -1,107 +1,632 @@
 // Stage 1 of the exact two-stage top-k: (Q, D) f32 scores → for each block
 // of block_d columns its top k, as (Q, n_blocks·k) values and global
-// column indices.  Stage 2 (repro_torch/kernels/topk_blocks/ops.py) ranks
-// the candidates by (score desc, id asc).
+// column indices in (value desc, column asc) order.  Stage 2
+// (repro_torch/kernels/topk_blocks/ops.py) ranks the candidates by
+// (score desc, id asc).
 //
 // Replaces src/repro/kernels/topk_blocks/kernel.py::topk_blocks_pallas
 // (tile body _topk_tile_kernel).  That kernel runs k rounds of "max, then
-// the lowest column holding it, then set that column to −inf".  This one
-// gives the same output without writing to the tile: round r picks the
-// element that comes first in the (value desc, column asc) order among
-// those after round r−1's pick.  Columns past D are −inf pads, as in the
-// Pallas wrapper.  Once a round's best is −inf the Pallas kernel picks
-// the lowest column now holding −inf — the lowest of the original −inf
-// columns and the columns already picked — in that round and every round
-// after; so does this one.
+// the lowest column holding it, then set that column to −inf".  Its output,
+// which this kernel gives bit for bit:
+// - the block's elements above −inf in (value desc, column asc) order,
+//   −0.0 equal to +0.0 (ties between them go to the lower column);
+// - once those run out, every remaining slot is (−inf, the block's first
+//   column): by then the Pallas tile holds only −inf, original or set, and
+//   its lowest column is the block's first.  Columns past D are −inf pads;
+//   k > block_d fills the same way.
 //
 // Bound on an H100 SXM (3.35 TB/s): on (256, 1M) it reads 1.02 GB of
-// scores, 0.31 ms.  Design: one warp per (row, block); each round every
-// lane scans its block_d/32 columns (the 4 KB tile stays in L1 after the
-// first round) and the warp reduces with shuffles.  The k rounds cost
-// k·block_d/32 compares per lane, so a large k is slow, not wrong.
+// scores, 0.31 ms.  The Pallas kernel's k rounds cost k·block_d compares a
+// block; this one reads each tile once and makes a fixed number of passes
+// over it whatever k is, so its cost follows the tile, not k.  Keys are
+// order-preserving uint32 maps of the floats (−0.0 as +0.0; −inf and pads
+// as 0, never picked), and an entry (key << 32 | ~column) orders by (value
+// desc, column asc), so a sort of entries is the Pallas order.
+// - A bound first: each warp's c-th largest thread maximum, c = ⌈k/warps⌉,
+//   has c keys of the tile at or above it, so the smallest such bound has
+//   at least k.  The keys at or above it (usually 1–3·k) are collected by a
+//   warp scan and sorted (bitonic, by shuffles below a stride of 32), and
+//   the first k written.  No atomics on elements, three block barriers.
+// - Otherwise (k > 32·warps, or more survivors than the buffer holds, as
+//   with heavy ties at the bound): radix select of the k-th key, up to four
+//   8-bit histogram passes over the tile with shared-memory atomics on
+//   counts only (deterministic), stopping once the bin holding the k-th key
+//   is taken whole; keys above it are kept and, of the keys equal to it,
+//   the lowest columns by a block-wide prefix count in column order; then
+//   the k survivors are sorted.
+// Shapes: the main path's (block_d ≤ 1024, k ≤ 32) runs a warp per block
+// with the tile in registers and no block barriers (below); other blocks a
+// CTA per block with the tile in shared memory (16 bytes a thread where
+// aligned).  A tile above 32,768 columns is read from global memory in
+// every pass, and a sort above 8,192 entries runs in a global scratch the
+// wrapper allocates: slower, same output.
 
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int WARPS = 4;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_TILE = 32768;  // columns held in shared memory
 
-// (v, i) before (bv, bi) in the (value desc, column asc) order
-__device__ __forceinline__ bool before(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
+// order-preserving map of a NaN-free float; −inf → 0, −0.0 → +0.0's key
+__device__ __forceinline__ unsigned key_of(float v) {
+  if (v == -INFINITY) return 0u;
+  const unsigned u = __float_as_uint(v + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-topk_blocks_kernel(const float* __restrict__ scores, float* __restrict__ vals,
-                   int* __restrict__ idx, int n_q, int n_d, int k,
-                   int block_d, int n_blocks) {
-  const long long warp = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (warp >= (long long)n_q * n_blocks) return;  // whole warp leaves
-  const int row = static_cast<int>(warp / n_blocks);
-  const int blk = static_cast<int>(warp % n_blocks);
-  const float* s = scores + (size_t)row * n_d;
-  const int base = blk * block_d;
-  const int stop = min(base + block_d, n_d);
-  float* out_v = vals + (size_t)warp * k;
-  int* out_i = idx + (size_t)warp * k;
+// the element's raw bits: from the shared tile, or from global memory
+template <bool TILE>
+__device__ __forceinline__ float value_at(const unsigned* tile,
+                                          const float* s, int i) {
+  if constexpr (TILE) return __uint_as_float(tile[i]);
+  return s[i];
+}
 
-  // the previous pick; (+inf, −1) comes before every element
-  float last_v = INFINITY;
-  int last_i = -1;
-  int min_picked = INT_MAX;
-  for (int r = 0; r < k; ++r) {
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int col = base + lane; col < base + block_d; col += 32) {
-      const float v = col < stop ? __ldg(s + col) : -INFINITY;
-      if (before(last_v, last_i, v, col) && before(v, col, bv, bi)) {
-        bv = v;
-        bi = col;
-      }
-    }
+template <bool TILE>
+__device__ __forceinline__ unsigned key_at(const unsigned* tile,
+                                           const float* s, int i) {
+  return key_of(value_at<TILE>(tile, s, i));
+}
+
+// exclusive prefix sum over the block, in thread order
+template <int NT>
+__device__ unsigned block_exclusive_scan(unsigned v, unsigned* wsum) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  unsigned incl = v;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(FULL, bv, off);
-      const int oi = __shfl_xor_sync(FULL, bi, off);
-      if (before(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned o = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned w = lane < NT / 32 ? wsum[lane] : 0u;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned o = __shfl_up_sync(FULL, w, off);
+      if (lane >= off) w += o;
+    }
+    if (lane < NT / 32) wsum[lane] = w;  // inclusive over warps
+  }
+  __syncthreads();
+  const unsigned before = warp > 0 ? wsum[warp - 1] : 0u;
+  __syncthreads();
+  return before + incl - v;
+}
+
+// One bitonic compare-exchange step of a descending sort: the pair's
+// lower index keeps the larger entry in a segment sorted descending.
+template <typename T>
+__device__ __forceinline__ T bitonic_keep(T v, T o, int i, int size,
+                                          int stride) {
+  const bool keep_max = ((i & stride) == 0) == ((i & size) == 0);
+  return keep_max ? (v > o ? v : o) : (v < o ? v : o);
+}
+
+// the strides below 32 of a bitonic merge of segments of ``size``; entry i
+// in thread i's register
+template <typename T>
+__device__ __forceinline__ T merge_in_warp(T v, int i, int size) {
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1)
+    if (stride < size)
+      v = bitonic_keep(v, static_cast<T>(__shfl_xor_sync(FULL, v, stride)),
+                       i, size, stride);
+  return v;
+}
+
+// bitonic sort, descending, of 32 entries, one per lane of each warp
+template <typename T>
+__device__ __forceinline__ T warp_sort_desc(T v) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) v = merge_in_warp(v, lane, size);
+  return v;
+}
+
+// bitonic sort, descending, of n entries (a power of two, 64 ≤ n ≤ NT),
+// entry i in thread i's register; strides ≥ 32 exchange through ``buf``
+template <typename T>
+__device__ T block_sort_desc(T v, int n, T* buf) {
+  const int i = threadIdx.x;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) v = merge_in_warp(v, i, size);
+  for (int size = 64; size <= n; size <<= 1) {
+    for (int stride = size / 2; stride >= 32; stride >>= 1) {
+      __syncthreads();
+      if (i < n) buf[i] = v;
+      __syncthreads();
+      if (i < n) v = bitonic_keep(v, buf[i ^ stride], i, size, stride);
+    }
+    v = merge_in_warp(v, i, size);
+  }
+  return v;
+}
+
+// bitonic sort, descending, of n entries (a power of two) in memory
+template <int NT>
+__device__ void sort_desc_mem(unsigned long long* a, int n) {
+  for (int size = 2; size <= n; size <<= 1)
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < n / 2; i += NT) {
+        const int lo = 2 * stride * (i / stride) + i % stride;
+        const int hi = lo + stride;
+        const unsigned long long x = a[lo], y = a[hi];
+        if (((lo & size) == 0) == (x < y)) {
+          a[lo] = y;
+          a[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+}
+
+__device__ __forceinline__ unsigned long long entry(unsigned key, int col) {
+  return (static_cast<unsigned long long>(key) << 32) |
+         (0xffffffffu - static_cast<unsigned>(col));
+}
+
+__device__ __forceinline__ int entry_col(unsigned long long e) {
+  return static_cast<int>(0xffffffffu - static_cast<unsigned>(e));
+}
+
+struct Shared {
+  unsigned hist[3][256];  // radix pass p counts into hist[p % 3]
+  unsigned wsum[32];
+  unsigned n_live;        // elements above −inf
+  unsigned n_found;       // survivors written so far
+  unsigned bound;         // no more than the k-th largest key
+};
+
+// entries of the candidate buffer: the survivors' sort (p2), the block
+// sort's exchange (nt), and room for the keys at or above the bound (a
+// quarter of the block, at most 2048)
+__host__ __device__ inline int cand_cap(int p2, int nt, int block_d) {
+  int pow2 = 1;
+  while (pow2 < block_d && pow2 < 8192) pow2 <<= 1;
+  const int room = pow2 / 4 < 2048 ? pow2 / 4 : 2048;
+  const int m = p2 > nt ? p2 : nt;
+  return m > room ? m : room;
+}
+
+size_t smem_bytes(bool tile, int block_d, int cap, bool sort_in_smem) {
+  size_t b = tile ? static_cast<size_t>(block_d) * 4 : 0;
+  b = (b + 15) / 16 * 16;
+  return b + (sort_in_smem ? static_cast<size_t>(cap) * 8 : 0);
+}
+
+// Sort ``found`` entries of ``cand`` (found ≤ the buffer) by (key desc,
+// column asc) and write the first kk of them.
+template <int NT, bool TILE>
+__device__ void sort_and_write(unsigned long long* cand, int found, int kk,
+                               const unsigned* tile, const float* s,
+                               int base, float* out_v, int* out_i) {
+  const int tid = threadIdx.x;
+  int len = 1;
+  while (len < found) len <<= 1;
+  if (len <= 32) {  // one warp
+    if (tid < 32) {
+      const unsigned long long e =
+          warp_sort_desc(tid < found ? cand[tid] : 0ull);
+      if (tid < kk) {
+        out_v[tid] = value_at<TILE>(tile, s, entry_col(e));
+        out_i[tid] = base + entry_col(e);
       }
     }
-    if (bv == -INFINITY) {
-      // the Pallas tile is all −inf from here on: its lowest column repeats
-      const int col = min(bi, min_picked);
-      for (int t = r + lane; t < k; t += 32) {
-        out_v[t] = -INFINITY;
-        out_i[t] = col;
+  } else if (len <= NT) {
+    __syncthreads();  // cand is the block sort's exchange buffer
+    const unsigned long long e =
+        tid < found ? cand[tid] : 0ull;
+    const unsigned long long sorted = block_sort_desc(e, len, cand);
+    if (tid < kk) {
+      out_v[tid] = value_at<TILE>(tile, s, entry_col(sorted));
+      out_i[tid] = base + entry_col(sorted);
+    }
+  } else {
+    for (int i = found + tid; i < len; i += NT) cand[i] = 0ull;
+    __syncthreads();
+    sort_desc_mem<NT>(cand, len);
+    for (int r = tid; r < kk; r += NT) {
+      out_v[r] = value_at<TILE>(tile, s, entry_col(cand[r]));
+      out_i[r] = base + entry_col(cand[r]);
+    }
+  }
+}
+
+template <int NT, bool TILE>
+__global__ void __launch_bounds__(NT)
+topk_blocks_kernel(const float* __restrict__ scores, float* __restrict__ vals,
+                   int* __restrict__ idx,
+                   unsigned long long* __restrict__ scratch, int n_d, int k,
+                   int block_d, int n_blocks, int p2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Shared sh;
+  constexpr int WARPS = NT / 32;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const unsigned cta = blockIdx.x;
+  const int row = static_cast<int>(cta / n_blocks);
+  const int blk = static_cast<int>(cta % n_blocks);
+  const int base = blk * block_d;
+  const int n = min(block_d, n_d - base);
+  const float* s = scores + static_cast<size_t>(row) * n_d + base;
+  const int cap = cand_cap(p2, NT, block_d);
+  unsigned* tile = reinterpret_cast<unsigned*>(smem);
+  unsigned long long* cand =
+      scratch != nullptr
+          ? scratch + static_cast<size_t>(cta) * cap
+          : reinterpret_cast<unsigned long long*>(
+                smem + (TILE ? (static_cast<size_t>(block_d) * 4 + 15) / 16
+                                   * 16 : 0));
+  float* out_v = vals + static_cast<size_t>(cta) * k;
+  int* out_i = idx + static_cast<size_t>(cta) * k;
+
+  if (tid == 0) {
+    sh.n_live = 0;
+    sh.n_found = 0;
+    sh.bound = 0xffffffffu;
+  }
+  for (int b = tid; b < 256; b += NT) sh.hist[0][b] = 0;
+
+  // 1. the tile (raw bits, into shared memory), the count of elements above
+  //    −inf and each thread's largest key
+  unsigned live = 0, top = 0;
+  if constexpr (TILE) {
+    const int n4 = reinterpret_cast<uintptr_t>(s) % 16 == 0 ? n / 4 : 0;
+#pragma unroll 4
+    for (int i = tid; i < n4; i += NT) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(s) + i);
+      const unsigned a = key_of(v.x), b = key_of(v.y), c = key_of(v.z),
+                     d = key_of(v.w);
+      live += (a != 0) + (b != 0) + (c != 0) + (d != 0);
+      top = max(top, max(max(a, b), max(c, d)));
+      reinterpret_cast<float4*>(tile)[i] = v;
+    }
+    for (int i = 4 * n4 + tid; i < n; i += NT) {
+      const float v = __ldcs(s + i);
+      const unsigned a = key_of(v);
+      live += a != 0;
+      top = max(top, a);
+      tile[i] = __float_as_uint(v);
+    }
+  } else {
+    for (int i = tid; i < n; i += NT) {
+      const unsigned a = key_of(s[i]);
+      live += a != 0;
+      top = max(top, a);
+    }
+  }
+  live = __reduce_add_sync(FULL, live);
+  // A bound: each warp's c-th largest thread maximum, c = ⌈k / warps⌉, has
+  // c of the warp's keys at or above it, so the smallest of these bounds
+  // has c·warps ≥ k keys at or above it.
+  const int c = (k + WARPS - 1) / WARPS;
+  const bool bounded = c <= 32;
+  unsigned my_bound = 0xffffffffu;
+  if (bounded) {
+    const unsigned t = warp_sort_desc(top);
+    if (lane == c - 1) my_bound = t;
+  }
+  __syncthreads();  // sh initialised
+  if (lane == 0 && live) atomicAdd(&sh.n_live, live);
+  if (my_bound != 0xffffffffu) atomicMin(&sh.bound, my_bound);
+  __syncthreads();
+  const int kk = min(k, static_cast<int>(sh.n_live));
+  for (int r = kk + tid; r < k; r += NT) {  // past the live elements
+    out_v[r] = -INFINITY;
+    out_i[r] = base;
+  }
+  if (kk == 0) return;
+
+  if (bounded) {
+    // 2a. the keys at or above the bound (usually a few times k): count,
+    //     place by a warp scan, write; when they fit, sort them all
+    const unsigned bound = max(1u, sh.bound);
+    unsigned mine = 0;
+    for (int i = tid; i < n; i += NT) mine += key_at<TILE>(tile, s, i) >= bound;
+    unsigned incl = mine;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned o = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += o;
+    }
+    unsigned wbase = 0;
+    if (lane == 31 && incl) wbase = atomicAdd(&sh.n_found, incl);
+    unsigned pos = __shfl_sync(FULL, wbase, 31) + incl - mine;
+    if (mine) {
+      for (int i = tid; i < n; i += NT) {
+        const unsigned key = key_at<TILE>(tile, s, i);
+        if (key >= bound) {
+          if (pos < static_cast<unsigned>(cap)) cand[pos] = entry(key, i);
+          ++pos;
+        }
       }
+    }
+    __syncthreads();
+    const int found = static_cast<int>(sh.n_found);
+    if (found <= cap) {
+      sort_and_write<NT, TILE>(cand, found, kk, tile, s, base, out_v, out_i);
       return;
     }
-    if (lane == 0) {
-      out_v[r] = bv;
-      out_i[r] = bi;
-    }
-    last_v = bv;
-    last_i = bi;
-    min_picked = min(min_picked, bi);
+    __syncthreads();  // every thread has read n_found
+    if (tid == 0) sh.n_found = 0;
+    __syncthreads();
   }
+
+  // 2. radix select of the kk-th largest key; one barrier a pass: every
+  //    warp scans the histogram itself, and the next pass counts into
+  //    another of the three histograms, cleared while this one fills
+  unsigned prefix = 0, kr = kk, cnt = 0;
+  int shift = 24;
+  for (int pass = 0;; ++pass, shift -= 8) {
+    unsigned* h = sh.hist[pass % 3];
+    unsigned* h_next = sh.hist[(pass + 1) % 3];
+    for (int b = tid; b < 256; b += NT) h_next[b] = 0;
+    for (int i = tid; i < n; i += NT) {
+      const unsigned key = key_at<TILE>(tile, s, i);
+      if (shift == 24 || (key >> (shift + 8)) == prefix)
+        atomicAdd(&h[(key >> shift) & 255], 1u);
+    }
+    __syncthreads();
+    // lane l holds bins 255 − 8l … 248 − 8l; count from the top
+    unsigned cb[8], local = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      cb[j] = h[255 - 8 * lane - j];
+      local += cb[j];
+    }
+    unsigned incl = local;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned o = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += o;
+    }
+    unsigned above = incl - local, bin = 0, nkr = 0, ncnt = 0;
+    const bool here = above < kr && kr <= incl;
+    if (here) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (above + cb[j] >= kr) {
+          bin = 255 - 8 * lane - j;
+          nkr = kr - above;
+          ncnt = cb[j];
+          break;
+        }
+        above += cb[j];
+      }
+    }
+    const int src = __ffs(__ballot_sync(FULL, here)) - 1;
+    prefix = (prefix << 8) | __shfl_sync(FULL, bin, src);
+    kr = __shfl_sync(FULL, nkr, src);
+    cnt = __shfl_sync(FULL, ncnt, src);
+    if (cnt == kr || shift == 0) break;  // the bin is taken whole, or
+  }                                      // prefix is the full key
+
+  // 3. survivors: keys above the threshold, and all of the bin when it is
+  //    taken whole; otherwise (ties of one key) the lowest columns
+  const bool whole = cnt == kr;
+  const unsigned lane_lt = (1u << lane) - 1u;
+  for (int i0 = 0; i0 < n; i0 += NT) {
+    const int i = i0 + tid;
+    bool keep = false;
+    unsigned key = 0;
+    if (i < n) {
+      key = key_at<TILE>(tile, s, i);
+      const unsigned hi = key >> shift;
+      keep = hi > prefix || (whole && hi == prefix);
+    }
+    const unsigned m = __ballot_sync(FULL, keep);
+    unsigned slot = 0;
+    if (lane == 0 && m)
+      slot = atomicAdd(&sh.n_found, static_cast<unsigned>(__popc(m)));
+    slot = __shfl_sync(FULL, slot, 0) + __popc(m & lane_lt);
+    if (keep) cand[slot] = entry(key, i);
+  }
+  if (!whole) {
+    // contiguous column ranges a thread, so a prefix count over threads is
+    // a count in column order
+    const int per = (n + NT - 1) / NT;
+    const int lo = min(n, tid * per);
+    const int hi = min(n, lo + per);
+    unsigned eq = 0;
+    for (int i = lo; i < hi; ++i) eq += key_at<TILE>(tile, s, i) == prefix;
+    const unsigned before = block_exclusive_scan<NT>(eq, sh.wsum);
+    unsigned quota = kr > before ? min(kr - before, eq) : 0u;
+    for (int i = lo; i < hi && quota > 0; ++i) {
+      if (key_at<TILE>(tile, s, i) == prefix) {
+        cand[atomicAdd(&sh.n_found, 1u)] = entry(prefix, i);
+        --quota;
+      }
+    }
+  }
+  __syncthreads();
+  // 4. (key desc, column asc)
+  sort_and_write<NT, TILE>(cand, kk, kk, tile, s, base, out_v, out_i);
+}
+
+// The main path's shape (block_d ≤ 1024, k ≤ 32): a warp per (row, block),
+// the tile in registers (32 keys a lane), no block barriers.  The bound is
+// the k-th largest lane maximum; the keys at or above it (usually 1–2·k)
+// are sorted by shuffles.  More than 64 of them (heavy ties at the bound):
+// kk rounds of "the largest entry after the last pick", exact as well.
+constexpr int WARP_TILE = 1024;
+constexpr int WARP_K = 32;
+constexpr int WARP_CTA = 4;  // warps (tiles) a CTA
+// 10 CTAs an SM (≤ 48 registers; a few keys spill to L1): the kernel is
+// bound by the tiles in flight, and unbounded it takes 91 registers, which
+// leaves room for 5
+constexpr int WARP_CTAS_PER_SM = 10;
+
+__device__ __forceinline__ float value_of(unsigned key, const float* s,
+                                          int col) {
+  if (key == 0x80000000u) return s[col];  // ±0.0: the sign is in memory
+  return __uint_as_float((key & 0x80000000u) ? key ^ 0x80000000u : ~key);
+}
+
+__global__ void __launch_bounds__(32 * WARP_CTA, WARP_CTAS_PER_SM)
+topk_warp_kernel(const float* __restrict__ scores, float* __restrict__ vals,
+                 int* __restrict__ idx, int n_q, int n_d, int k, int block_d,
+                 int n_blocks) {
+  __shared__ unsigned long long buf[WARP_CTA][64];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long tile_id = static_cast<long long>(blockIdx.x) * WARP_CTA + warp;
+  if (tile_id >= static_cast<long long>(n_q) * n_blocks) return;
+  const int row = static_cast<int>(tile_id / n_blocks);
+  const int blk = static_cast<int>(tile_id % n_blocks);
+  const int base = blk * block_d;
+  const int n = min(block_d, n_d - base);
+  const float* s = scores + static_cast<size_t>(row) * n_d + base;
+  float* out_v = vals + tile_id * k;
+  int* out_i = idx + tile_id * k;
+  unsigned long long* cand = buf[warp];
+
+  // element (j, c) of a lane is column 128·j + 4·lane + c
+  unsigned key[32];
+  const bool vec = reinterpret_cast<uintptr_t>(s) % 16 == 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 128 * j + 4 * lane;
+    if (vec && col + 3 < n) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(s + col));
+      key[4 * j] = key_of(v.x);
+      key[4 * j + 1] = key_of(v.y);
+      key[4 * j + 2] = key_of(v.z);
+      key[4 * j + 3] = key_of(v.w);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        key[4 * j + c] = col + c < n ? key_of(__ldcs(s + col + c)) : 0u;
+    }
+  }
+  unsigned live = 0, top = 0;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    live += key[e] != 0;
+    top = max(top, key[e]);
+  }
+  live = __reduce_add_sync(FULL, live);
+  const int kk = min(k, static_cast<int>(live));
+  if (lane >= kk && lane < k) {  // past the live elements
+    out_v[lane] = -INFINITY;
+    out_i[lane] = base;
+  }
+  if (kk == 0) return;
+
+  // k lanes hold a key ≥ the k-th largest lane maximum
+  const unsigned bound =
+      max(1u, __shfl_sync(FULL, warp_sort_desc(top), k - 1));
+  unsigned mine = 0;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) mine += key[e] >= bound;
+  unsigned incl = mine;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned o = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += o;
+  }
+  const int found = static_cast<int>(__shfl_sync(FULL, incl, 31));
+  unsigned long long best;
+  if (found <= 64) {
+    unsigned pos = incl - mine;
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      if (key[e] >= bound)
+        cand[pos++] = entry(key[e], 128 * (e / 4) + 4 * lane + e % 4);
+    __syncwarp();
+    unsigned long long v0 = lane < found ? cand[lane] : 0ull;
+    if (found <= 32) {
+      best = warp_sort_desc(v0);
+    } else {  // 64 entries: lane and lane + 32
+      unsigned long long v1 = lane + 32 < found ? cand[lane + 32] : 0ull;
+#pragma unroll
+      for (int size = 2; size <= 32; size <<= 1) {
+        v0 = merge_in_warp(v0, lane, size);
+        v1 = merge_in_warp(v1, lane + 32, size);
+      }
+      v0 = v0 > v1 ? v0 : v1;  // stride 32 of the last merge; v0 the larger
+      best = merge_in_warp(v0, lane, 64);
+    }
+  } else {
+    // rounds: lane r keeps the r-th pick
+    unsigned long long last = ~0ull;
+    best = 0;
+    for (int r = 0; r < kk; ++r) {
+      unsigned long long m = 0;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const unsigned long long x =
+            entry(key[e], 128 * (e / 4) + 4 * lane + e % 4);
+        if (key[e] != 0 && x < last && x > m) m = x;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(FULL, m, off);
+        m = o > m ? o : m;
+      }
+      if (lane == r) best = m;
+      last = m;
+    }
+  }
+  if (lane < kk) {
+    const int col = entry_col(best);
+    out_v[lane] = value_of(static_cast<unsigned>(best >> 32), s, col);
+    out_i[lane] = base + col;
+  }
+}
+
+template <int NT, bool TILE>
+int launch(const void* scores, void* vals, void* idx, void* scratch, int n_q,
+           int n_d, int k, int block_d, int n_blocks, int p2,
+           cudaStream_t stream) {
+  auto kern = topk_blocks_kernel<NT, TILE>;
+  const size_t smem = smem_bytes(TILE, block_d, cand_cap(p2, NT, block_d),
+                                 scratch == nullptr);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long ctas = static_cast<long long>(n_q) * n_blocks;
+  if (ctas > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  kern<<<static_cast<unsigned>(ctas), NT, smem, stream>>>(
+      static_cast<const float*>(scores), static_cast<float*>(vals),
+      static_cast<int*>(idx), static_cast<unsigned long long*>(scratch), n_d,
+      k, block_d, n_blocks, p2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// p2: the survivors' sort length, the power of two ≥ min(k, block_d);
+// scratch: null (sort in shared memory) or n_q·n_blocks·p2 uint64 entries.
 extern "C" int topk_blocks_launch(const void* scores, void* vals, void* idx,
-                                  int n_q, int n_d, int k, int block_d,
-                                  int n_blocks, void* stream) {
-  const long long warps = (long long)n_q * n_blocks;
-  const dim3 grid(static_cast<unsigned>((warps + WARPS - 1) / WARPS));
-  topk_blocks_kernel<<<grid, WARPS * 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scores), static_cast<float*>(vals),
-      static_cast<int*>(idx), n_q, n_d, k, block_d, n_blocks);
-  return static_cast<int>(cudaGetLastError());
+                                  void* scratch, int n_q, int n_d, int k,
+                                  int block_d, int n_blocks, int p2,
+                                  void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (block_d <= WARP_TILE && k <= WARP_K) {
+    const long long tiles = static_cast<long long>(n_q) * n_blocks;
+    const long long ctas = (tiles + WARP_CTA - 1) / WARP_CTA;
+    if (ctas > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    topk_warp_kernel<<<static_cast<unsigned>(ctas), 32 * WARP_CTA, 0, st>>>(
+        static_cast<const float*>(scores), static_cast<float*>(vals),
+        static_cast<int*>(idx), n_q, n_d, k, block_d, n_blocks);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (block_d > MAX_TILE)
+    return launch<512, false>(scores, vals, idx, scratch, n_q, n_d, k,
+                              block_d, n_blocks, p2, st);
+  if (block_d > 8192)
+    return launch<512, true>(scores, vals, idx, scratch, n_q, n_d, k, block_d,
+                             n_blocks, p2, st);
+  if (block_d > 2048)
+    return launch<256, true>(scores, vals, idx, scratch, n_q, n_d, k, block_d,
+                             n_blocks, p2, st);
+  return launch<128, true>(scores, vals, idx, scratch, n_q, n_d, k, block_d,
+                           n_blocks, p2, st);
 }

@@ -8,9 +8,11 @@ launches the kernel for CUDA tensors, counts its launches in
 ``repro_torch/csrc/`` and are built by :mod:`repro_torch.kernels._build`
 at first use.
 
-- ``int8_ip``     : int8 index scoring, bf16(q⊙scale) × u8 with f32 sums.
+- ``int8_ip``     : int8 index scoring, bf16(q⊙scale) × u8 with f32 sums on
+                    the tensor cores, + a per-query bias (q·zero).
 - ``binary_ip``   : 1-bit index scoring, XOR + popcount over packed words.
-- ``topk_blocks`` : per-block top-k, stage 1 of the exact two-stage top-k.
+- ``topk_blocks`` : per-block top-k, stage 1 of the exact two-stage top-k,
+                    one pass over each block whatever k is.
 - ``ivf_fused``   : IVF search, probed lists gathered, scored and ranked in
                     one kernel (wrapper ``fused_ivf_topk``).
 - ``fused_quantize``: the one-pass doc encode of the pre+post-normalized

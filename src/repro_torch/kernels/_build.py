@@ -36,12 +36,13 @@ _p = ctypes.c_void_p
 _i = ctypes.c_int
 #: C entry point → argument types (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    # (q bf16, docs u8, out f32, n_q, n_docs, d, stream)
-    "int8_ip_launch": [_p, _p, _p, _i, _i, _i, _p],
+    # (q bf16, docs u8, bias f32 | null, out f32, n_q, n_docs, d, stream)
+    "int8_ip_launch": [_p, _p, _p, _p, _i, _i, _i, _p],
     # (q words, docs words, out i32, n_q, n_docs, n_words, stream)
     "binary_ip_launch": [_p, _p, _p, _i, _i, _i, _p],
-    # (scores f32, vals f32, idx i32, n_q, n_d, k, block_d, n_blocks, stream)
-    "topk_blocks_launch": [_p, _p, _p, _i, _i, _i, _i, _i, _p],
+    # (scores f32, vals f32, idx i32, sort scratch u64 | null, n_q, n_d, k,
+    #  block_d, n_blocks, sort length, stream)
+    "topk_blocks_launch": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p],
     # (probes i32, q, storage, list ids i32, base f32, vals f32, ids i32,
     #  scratch f32 | null, scratch i32 | null, n_q, nprobe, nlist, L, w, k,
     #  backend, stream)

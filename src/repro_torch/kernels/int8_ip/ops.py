@@ -1,9 +1,9 @@
 """Public op: score float queries against an int8-quantized index.
 
 IP decomposition: ``q·x = (q⊙scale)·u + q·zero``.  The kernel computes the
-first term from bf16(q⊙scale) and the uint8 codes; this wrapper adds the
-rank-1 ``q·zero`` term in place (the (Q, D) matrix is the largest buffer
-on the path) and, for l2, the decoded document norms.  Counterpart of
+first term from bf16(q⊙scale) and the uint8 codes and adds the rank-1
+``q·zero`` term as its per-query bias, in the same pass; this wrapper adds,
+for l2, the decoded document norms.  Counterpart of
 ``repro.kernels.int8_ip.ops``.
 """
 
@@ -36,8 +36,7 @@ def int8_scores(queries: torch.Tensor, docs_u8: torch.Tensor,
     if not use_kernel:
         return _ref.int8_scores_ref(queries, docs_u8, scale, zero, sim)
     q_scaled = (queries * scale).to(torch.bfloat16)
-    ip = int8_ip(q_scaled, docs_u8)
-    ip += (queries @ zero)[:, None]
+    ip = int8_ip(q_scaled, docs_u8, bias=queries @ zero)
     if sim == "ip":
         return ip
     if sim == "l2":

@@ -28,7 +28,11 @@ def int8_scores_ref(queries: torch.Tensor, docs_u8: torch.Tensor,
     raise ValueError(sim)
 
 
-def int8_ip_ref(q_scaled: torch.Tensor, docs_u8: torch.Tensor
-                ) -> torch.Tensor:
-    """(Q, d) bf16 pre-scaled queries × (D, d) uint8 codes → (Q, D) f32."""
-    return q_scaled.float() @ docs_u8.float().T
+def int8_ip_ref(q_scaled: torch.Tensor, docs_u8: torch.Tensor,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+    """(Q, d) bf16 pre-scaled queries × (D, d) uint8 codes (+ bias[:, None])
+    → (Q, D) f32; the bias is one f32 add of the finished sum."""
+    out = q_scaled.float() @ docs_u8.float().T
+    if bias is not None:
+        out += bias[:, None]
+    return out

@@ -15,6 +15,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.topk_blocks.ref import topk_blocks_ref
 from repro_torch.utils import cdiv
 
+#: survivors sorted in shared memory; a longer sort runs in a global scratch
+MAX_SMEM_SORT = 8192
+
 
 def topk_blocks(scores: torch.Tensor, k: int, block_d: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -33,14 +36,20 @@ def topk_blocks(scores: torch.Tensor, k: int, block_d: int
     n_q, n_d = s.shape
     k = min(k, n_d)
     n_blocks = cdiv(n_d, block_d)
+    p2 = 1 << (min(k, block_d) - 1).bit_length()   # the survivors' sort
+    scratch = (torch.empty(n_q * n_blocks * p2, dtype=torch.int64,
+                           device=s.device)
+               if p2 > MAX_SMEM_SORT and n_q and n_d else None)
     vals = torch.empty((n_q, n_blocks * k), dtype=torch.float32,
                        device=s.device)
     idx = torch.empty((n_q, n_blocks * k), dtype=torch.int32, device=s.device)
     if n_q and n_d:
         with torch.cuda.device(s.device):
             _build.check(_build.library().topk_blocks_launch(
-                s.data_ptr(), vals.data_ptr(), idx.data_ptr(), n_q, n_d, k,
-                block_d, n_blocks, _build.stream_handle(s)), "topk_blocks")
+                s.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None, n_q,
+                n_d, k, block_d, n_blocks, p2, _build.stream_handle(s)),
+                "topk_blocks")
         topk_blocks.launches += 1
     return vals, idx
 

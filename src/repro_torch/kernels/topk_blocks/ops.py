@@ -16,11 +16,21 @@ from repro_torch.kernels.topk_blocks import ref as _ref
 from repro_torch.kernels.topk_blocks.kernel import topk_blocks
 
 MIN_BLOCK_D = 1024
+#: the largest block the kernel holds in shared memory
+MAX_SMEM_BLOCK_D = 32768
+#: a block holds about this many times k, so stage 2 sees ~1/32 of a row
+BLOCK_PER_K = 32
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 def default_block_d(k: int) -> int:
-    """``max(1024, next power of two ≥ k)`` — a block always holds k."""
-    return max(MIN_BLOCK_D, 1 << max(int(k) - 1, 0).bit_length())
+    """``max(1024, next_pow2(k), min(32768, next_pow2(32·k)))``: a block
+    always holds k, and at deep k stage 2 sees about 3% of a row."""
+    return max(MIN_BLOCK_D, _next_pow2(k),
+               min(MAX_SMEM_BLOCK_D, _next_pow2(BLOCK_PER_K * k)))
 
 
 def streaming_topk(scores: torch.Tensor, k: int, use_kernel: bool = False,

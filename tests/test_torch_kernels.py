@@ -75,8 +75,33 @@ def test_int8_ip_ref_matches_pallas(q, d, dim, bq, bd):
                                   .numpy(), got)
 
 
+@pytest.mark.parametrize("q,d,dim", [(5, 37, 48), (16, 100, 64),
+                                     (7, 64, 100)])
+def test_int8_ip_bias_is_one_add(q, d, dim):
+    """The kernel's epilogue bias: one f32 add of the finished sum, so the
+    wrapper equals the plain product plus bias[:, None] bit for bit."""
+    queries, codes, scale, zero = _int8_case(q, d, dim, q * d)
+    tq = (torch.from_numpy(queries) * torch.from_numpy(scale)) \
+        .to(torch.bfloat16)
+    tc = torch.from_numpy(codes)
+    bias = torch.from_numpy(queries) @ torch.from_numpy(zero)
+    want = int8_ip_ref(tq, tc) + bias[:, None]
+    assert torch.equal(int8_ip_ref(tq, tc, bias), want)
+    assert torch.equal(int8_ip(tq, tc, bias=bias), want)
+
+
+def test_int8_ip_rejects_a_bad_bias():
+    q = torch.zeros(2, 4, dtype=torch.bfloat16)
+    u8 = torch.zeros(3, 4, dtype=torch.uint8)
+    for bad in (torch.zeros(3), torch.zeros(2, dtype=torch.float64),
+                torch.zeros(2, 1)):
+        with pytest.raises(ValueError):
+            int8_ip(q, u8, bias=bad)
+
+
 @pytest.mark.parametrize("sim", ["ip", "l2"])
-@pytest.mark.parametrize("q,d,dim", [(5, 37, 48), (16, 100, 64)])
+@pytest.mark.parametrize("q,d,dim", [(5, 37, 48), (16, 100, 64),
+                                     (7, 64, 100)])
 def test_int8_scores_both_numerics(sim, q, d, dim):
     queries, codes, scale, zero = _int8_case(q, d, dim, q + d)
     jq, jc, js, jz = (jnp.asarray(a) for a in (queries, codes, scale, zero))
@@ -187,6 +212,57 @@ def test_topk_blocks_ref_matches_pallas_with_ties(k, bd):
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
 
 
+def _signed_zeros():
+    """−0.0 and +0.0 tied at the top of a block, in both column orders."""
+    s = np.full((3, 24), -1.0, np.float32)
+    s[0, [2, 5, 9]] = [-0.0, 0.0, -0.0]
+    s[1, [1, 4, 17]] = [0.0, -0.0, 0.0]
+    s[2, ::2] = -0.0
+    s[2, 1::2] = 0.0
+    return s
+
+
+def _more_neg_inf_than_k():
+    """A block with 3 finite columns and k = 6: its tail is (−inf, the
+    block's first column), through the D-padding of the last block too."""
+    s = np.full((2, 20), -np.inf, np.float32)
+    s[0, [3, 11, 19]] = [0.5, -2.0, 0.5]
+    s[1, [0, 8, 9, 17]] = [1.0, 1.0, -1.0, 3.0]
+    return s
+
+
+@pytest.mark.parametrize("case,k,bd", [(_signed_zeros, 4, 8),
+                                       (_signed_zeros, 5, 24),
+                                       (_more_neg_inf_than_k, 6, 8),
+                                       (_more_neg_inf_than_k, 6, 16)])
+def test_topk_blocks_ref_matches_pallas_zeros_and_neg_inf(case, k, bd):
+    scores = case()
+    wv, wi = topk_blocks_pallas(jnp.asarray(scores), k, block_q=2,
+                                block_d=bd, interpret=True)
+    gv, gi = topk_blocks_ref(torch.from_numpy(scores), k, bd)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+@pytest.mark.parametrize("k", [110, 1010])
+def test_streaming_topk_default_block_matches_repro(k):
+    """The new default_block_d (4096 at k = 110, 32,768 at k = 1,010) gives
+    repro's two-stage ranking: its interpret-mode Pallas kernel at k = 110,
+    its lax.top_k order at k = 1,010 (whose rounds the interpreter unrolls
+    too slowly)."""
+    rng = np.random.default_rng(k)
+    scores = np.round(_rand(rng, 4, 3000) * 8)    # many ties
+    if k == 110:
+        want = r_tops.streaming_topk(jnp.asarray(scores), k, use_pallas=True,
+                                     interpret=True, block_q=8, block_d=1024)
+    else:
+        want = r_tops.streaming_topk(jnp.asarray(scores), k)
+    gv, gi = p_tops.streaming_topk(torch.from_numpy(scores), k,
+                                   use_kernel=True)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(want[1]))
+
+
 @pytest.mark.parametrize("q,d,k,bd", [(10, 333, 7, 64), (3, 50, 10, 16),
                                       (33, 1000, 16, 128)])
 @pytest.mark.parametrize("ties", [False, True])
@@ -204,10 +280,15 @@ def test_streaming_topk_matches_repro(q, d, k, bd, ties):
         np.testing.assert_array_equal(gi.numpy(), np.asarray(want[1]))
 
 
-@pytest.mark.parametrize("k,want", [(1, 1024), (10, 1024), (1024, 1024),
-                                    (1025, 2048), (5000, 8192)])
+@pytest.mark.parametrize("k,want", [(1, 1024), (10, 1024), (1024, 32768),
+                                    (1025, 32768), (5000, 32768),
+                                    (100, 4096), (110, 4096), (1010, 32768),
+                                    (40000, 65536)])
 def test_default_block_d_holds_k(k, want):
+    """max(1024, next_pow2(k), min(32768, next_pow2(32·k))): a block holds
+    k, and stage 2 sees about 1/32 of a row at deep k."""
     assert p_tops.default_block_d(k) == want
+    assert p_tops.default_block_d(k) >= k
 
 
 # ---------------------------------------------------------------------------
