@@ -14,11 +14,15 @@ Phases, each printed as it runs:
    words 1-bit; top-k at k=10, 100 and 1,010 — an exact main probed past
    1,000 tombstones — on random and tie-heavy scores, each with the
    two-stage time; ragged int8 widths and alignments, ±0.0 ties and blocks
-   above 32,768 columns; IVF
-   with nlist 1024, lists of 1221 rows, 64 probes, k=10, k=1025/2048
-   above the shared-memory top-k, and int8 at k=16,384 and 282,778, the
-   deepest probe of the seg_ivf_24x cell before it needs a compaction;
-   the encode at (1M, 768) → 128, and ragged widths up to 384 outputs)
+   above 32,768 columns; binary_ip's f32 scores at 1 to 130 words and odd
+   row offsets; IVF
+   with nlist 1024, lists of 1221 rows, 64 and 256 probes, k=10 and
+   k=1,510 (the seg_ivf_24x main after its deletes), k=1025/2048 above
+   the shared-memory top-k, and int8 at k=16,384 and 282,778, the
+   deepest probe of the seg_ivf_24x cell before it needs a compaction,
+   each IVF shape timed with its sub-kernels' device ms from one traced
+   call; the encode at (1M, 768) → 128, and ragged widths up to 384
+   outputs)
    and is held against its plain PyTorch version on the same inputs:
    binary_ip, topk_blocks and 1-bit IVF exactly, the f32 sums of int8_ip
    and float/fp16/int8 IVF to atol = 1e-5·max|plain| (summation order),
@@ -27,6 +31,7 @@ Phases, each printed as it runs:
    codes independent of the batch (bit for bit).  Timed with CUDA events
    beside the plain version, one PyTorch library call (``library_ms``,
    used nowhere in the port: a bf16 ``torch.mm`` writing f32 for int8_ip,
+   an fp16 ±1 ``torch.mm`` for binary_ip (and the same writing f32),
    ``torch.topk`` for topk_blocks; none gathers, scores and ranks per
    probe, so null for IVF; the product alone for fused_quantize) and the
    card's bound.
@@ -90,7 +95,7 @@ import torch  # noqa: E402
 from repro_torch.kernels import (_build, launch_counts,  # noqa: E402
                                  reset_launch_counts)
 from repro_torch.kernels.binary_ip.kernel import binary_ip  # noqa: E402
-from repro_torch.kernels.binary_ip.ref import sign_dot_ref  # noqa: E402
+from repro_torch.kernels.binary_ip.ref import binary_ip_ref  # noqa: E402
 from repro_torch.kernels.fused_quantize.kernel import (  # noqa: E402
     fused_quantize)
 from repro_torch.kernels.fused_quantize.ref import (  # noqa: E402
@@ -98,7 +103,7 @@ from repro_torch.kernels.fused_quantize.ref import (  # noqa: E402
 from repro_torch.kernels.int8_ip.kernel import int8_ip  # noqa: E402
 from repro_torch.kernels.int8_ip.ref import int8_ip_ref  # noqa: E402
 from repro_torch.kernels.ivf_fused.kernel import (  # noqa: E402
-    MAX_K, fused_ivf_topk)
+    MAX_K, candidates_per_pair, fused_ivf_topk)
 from repro_torch.kernels.ivf_fused.ref import fused_ivf_topk_ref  # noqa: E402
 from repro_torch.kernels.topk_blocks.kernel import topk_blocks  # noqa: E402
 from repro_torch.kernels.topk_blocks.ops import (  # noqa: E402
@@ -110,6 +115,9 @@ BATCH, K = 256, 10
 #: IVF at 1M docs: nlist ≈ √1M, the balanced cap's longest list, nprobe
 NLIST, L_MAIN, NPROBE = 1024, 1221, 64
 NPROBES_TIMED = (16, 64, 256)
+#: the deepest probe timed, and the probe depth of the seg_ivf_24x main
+#: after its 1,500 deletes (k + #dead)
+NPROBE_DEEP, SEG_K = 256, 1_510
 #: fused_ivf_topk above MAX_K: a segmented IVF main is probed k + #dead deep
 LARGE_KS = (1025, 2048)
 #: the probe depth's growth with #dead(main), int8 only: 16,384, and the
@@ -198,6 +206,14 @@ INT8_RAGGED = ((5, 37, 48, 0), (130, 1000, 100, 0), (1, 3, 128, 0),
                (40, 300, 384, 0), (9, 129, 2048, 0), (257, 4099, 128, 3))
 
 
+#: binary_ip edges: (Q, D, words, row offset of the words).  Partial tiles;
+#: 1 / 3 / 9 words (4-byte copies, a part-filled 8-word stage); 2 words at
+#: an odd offset (4-byte copies); 8 words at an odd offset (8-byte
+#: copies); 130 words (two launches, the second adding to the first).
+BINARY_RAGGED = ((7, 33, 2, 1), (65, 130, 3, 1), (1, 1, 1, 0), (9, 70, 9, 3),
+                 (33, 517, 1, 5), (301, 1001, 8, 1), (3, 257, 130, 2))
+
+
 def topk_ragged_cases(gen):
     """topk_blocks edges: (scores, k, block_d).  Partial blocks, k > block_d,
     −inf-heavy rows, ties (integers, one repeated value, a few ones), ±0.0
@@ -248,23 +264,26 @@ def check_ragged_shapes(gen) -> None:
                 raise AssertionError(f"int8_ip disagrees at {(q, d, dim)} "
                                      f"offset {off}, bias {b is not None}: "
                                      f"{err:.3g}")
-    for q, d, n_words in ((7, 33, 2), (65, 130, 3), (1, 1, 1), (9, 70, 9)):
+    for q, d, n_words, off in BINARY_RAGGED:
         signs = (torch.randint(0, 2, (q, 32 * n_words), device=dev,
                                generator=gen) * 2 - 1).to(torch.int8)
-        words = torch.randint(-2**31, 2**31 - 1, (d, n_words), device=dev,
-                              generator=gen, dtype=torch.int32)
-        if not torch.equal(binary_ip(signs, words),
-                           sign_dot_ref(signs, words)):
-            raise AssertionError(f"binary_ip disagrees at {(q, d, n_words)}")
+        words = torch.randint(-2**31, 2**31 - 1, (d + off, n_words),
+                              device=dev, generator=gen,
+                              dtype=torch.int32)[off:]
+        if not torch.equal(binary_ip(signs, words).view(torch.int32),
+                           binary_ip_ref(signs, words).view(torch.int32)):
+            raise AssertionError(f"binary_ip disagrees at {(q, d, n_words)} "
+                                 f"offset {off}")
     for scores, k, bd in topk_ragged_cases(gen):
         got, want = topk_blocks(scores, k, bd), topk_blocks_ref(scores, k, bd)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"topk_blocks disagrees at "
                                  f"{tuple(scores.shape)} k={k} block_d={bd}")
     torch.cuda.synchronize()
-    print("[kernel] ragged shapes (int8_ip with and without bias), k > "
+    print("[kernel] ragged shapes (int8_ip with and without bias; binary_ip "
+          "at 1 / 2 / 3 / 8 / 9 / 130 words, odd Q, D and row offsets), k > "
           "block_d, -inf, ties, +-0.0, blocks above 32768: int8_ip within "
-          "1e-5*max, topk_blocks exact")
+          "1e-5*max, binary_ip and topk_blocks bit for bit")
 
 
 def phase_kernels(rates) -> list[dict]:
@@ -319,15 +338,16 @@ def phase_kernels(rates) -> list[dict]:
              * 2 - 1).to(torch.int8)
     words = torch.randint(-2**31, 2**31 - 1, (D_MAIN, W_ONEBIT), device=dev,
                           generator=gen, dtype=torch.int32)
-    got, want = binary_ip(signs, words), sign_dot_ref(signs, words)
+    got, want = binary_ip(signs, words), binary_ip_ref(signs, words)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    print(f"[kernel] binary_ip (256, 1M, 8 words): max_abs_err {err:g} "
-          f"{'ok' if err == 0 else 'MISMATCH'}")
-    if not torch.equal(got, want):
-        raise AssertionError("binary_ip disagrees with sign_dot_ref")
-    tie_scores = got.float().mul_(0.25)       # the 1-bit path's top-k input
-    del got, want
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    print(f"[kernel] binary_ip (256, 1M, 8 words) f32 0.25*dot: max_abs_err "
+          f"{err:g}, {'bit for bit' if same else 'MISMATCH'}")
+    if not same:
+        raise AssertionError("binary_ip disagrees with binary_ip_ref")
+    tie_scores = got.clone()                  # the 1-bit path's top-k input
+    del want
     from repro_torch.core.quantization import unpack_bits
     docs_pm = unpack_bits(words, d_packed).to(torch.float16)
     signs_h = signs.to(torch.float16)
@@ -339,11 +359,16 @@ def phase_kernels(rates) -> list[dict]:
         "replaces": "src/repro/kernels/binary_ip/kernel.py:69",
         "max_abs_err": err,
         "ms": cuda_ms(lambda: binary_ip(signs, words), 20),
-        "plain_ms": cuda_ms(lambda: sign_dot_ref(signs, words), 5),
+        "plain_ms": cuda_ms(lambda: binary_ip_ref(signs, words), 5),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: torch.mm(signs_h, docs_pm.T), 20),
-        "shape": "Q=256 D=1000000 words=8"})
-    del docs_pm, signs_h, words
+        "library_call": "torch.mm(fp16 +-1, fp16 +-1), fp16 output",
+        "library_f32_out_ms": cuda_ms(lambda: torch.mm(
+            signs_h, docs_pm.T, out_dtype=torch.float32), 20),
+        # what writing the (Q, D) f32 output alone takes (fill_)
+        "write_only_ms": cuda_ms(lambda: got.fill_(0.0), 20),
+        "shape": "Q=256 D=1000000 words=8, f32 output"})
+    del docs_pm, signs_h, words, got
 
     # -- topk_blocks: (Q, 1M) f32 at k = 10 (the main path), 100 and 1,010
     #    (an exact segmented main probed k + #dead(main) deep), random and
@@ -567,8 +592,32 @@ def check_ivf_large_k(gen) -> dict:
     return out
 
 
+def ivf_sub_kernels(fn) -> dict[str, float]:
+    """Device ms of each of fused_ivf_topk's sub-kernels in one traced
+    call (torch.profiler): invert (count, scan, scatter), score the
+    lists, merge the candidates."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        found = re.search(r"ivf_\w+", evt.key)
+        if found and evt.device_type == torch.autograd.DeviceType.CUDA:
+            out[found.group(0)] = getattr(
+                evt, "self_device_time_total",
+                getattr(evt, "self_cuda_time_total", 0)) / 1e3
+    return out
+
+
 def phase_ivf_kernel(rates) -> dict:
-    """fused_ivf_topk at the main path's shapes, all four backends."""
+    """fused_ivf_topk at the main and mutable paths' shapes, all four
+    backends: nprobe 64 and 256, k = 10 and SEG_K (the segmented IVF
+    main probed past its tombstones)."""
     byte_rate, bf16_rate, int8_rate, f32_rate = rates
     gen = torch.Generator(device="cuda").manual_seed(1)
     check_ivf_ragged(gen)
@@ -579,51 +628,90 @@ def phase_ivf_kernel(rates) -> dict:
            "library_note": "no single PyTorch call gathers, scores and "
                            "ranks each query's probed lists",
            "shape": f"Q={Q} nlist={NLIST} L={L_MAIN} nprobe={NPROBE} "
-                    f"k={K}; int8 d={D_INT8}, 1-bit {W_ONEBIT} words"}
+                    f"k={K}; int8 d={D_INT8}, 1-bit {W_ONEBIT} words; "
+                    f"also nprobe 256 and k={SEG_K}"}
     for backend in ("float", "fp16", "int8", "onebit"):
         dim = 32 * W_ONEBIT if backend == "onebit" else D_INT8
-        args = ivf_case(gen, backend, Q, NLIST, L_MAIN, NPROBE, dim)
-        probes, qe, store, ids, base = args
-        got = fused_ivf_topk(*args, K, backend)
-        want = fused_ivf_topk_ref(*args, k=K, backend=backend)
-        torch.cuda.synchronize()
-        ok, err = ranking_agrees(got, want, exact=backend == "onebit")
-        print(f"[kernel] fused_ivf_topk[{backend}] (Q={Q}, nlist={NLIST}, "
-              f"L={L_MAIN}, nprobe={NPROBE}, k={K}): max_abs_err {err:.3g} "
-              f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            raise AssertionError(f"fused_ivf_topk[{backend}] disagrees with "
-                                 "fused_ivf_topk_ref")
-        if backend not in ("int8", "onebit"):
-            continue
-        # bound: each distinct probed list's rows and ids once, queries,
-        # probes, base and outputs; the valid (query, row) pairs' products
-        n_lists = int(torch.unique(probes).numel())
-        row_bytes = store.shape[-1] * store.element_size()
-        n_bytes = (n_lists * L_MAIN * (row_bytes + 4)
-                   + qe.numel() * qe.element_size() + probes.numel() * 8
-                   + Q * K * 8)
-        pairs = int((ids[probes.long()] >= 0).sum())
-        n_ops = 2.0 * pairs * dim
-        b_ms, b_by = bound(n_bytes, n_ops,
-                           bf16_rate if backend == "int8" else int8_rate,
-                           byte_rate)
-        ms = cuda_ms(lambda: fused_ivf_topk(*args, K, backend), 10)
-        plain_ms = cuda_ms(
-            lambda: fused_ivf_topk_ref(*args, k=K, backend=backend), 2)
-        pre = "" if backend == "int8" else "onebit_"
-        rec.update({f"{pre}max_abs_err": err, f"{pre}ms": ms,
-                    f"{pre}plain_ms": plain_ms, f"{pre}bound_ms": b_ms,
-                    f"{pre}bound_by": b_by,
-                    f"{pre}distinct_lists": n_lists})
-        print(f"[kernel] fused_ivf_topk[{backend}]: {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
-              f"{n_bytes / 1e9:.4f} GB, {n_ops / 1e9:.3f} GOP)")
-        del got, want, args, probes, qe, store, ids, base
+        for nprobe in (NPROBE, NPROBE_DEEP):
+            args = ivf_case(gen, backend, Q, NLIST, L_MAIN, nprobe, dim)
+            probes, qe, store, ids, base = args
+            for k in (K, SEG_K):
+                got = fused_ivf_topk(*args, k, backend)
+                if k == K:
+                    want = fused_ivf_topk_ref(*args, k=k, backend=backend)
+                    cut = None
+                else:  # a near-tie across the cut may keep either row
+                    wv, wi = fused_ivf_topk_ref(*args, k=k + 1,
+                                                backend=backend)
+                    want, cut = (wv[:, :k], wi[:, :k]), wv[:, k]
+                torch.cuda.synchronize()
+                ok, err = ranking_agrees(got, want, exact=backend == "onebit",
+                                         cut=cut)
+                print(f"[kernel] fused_ivf_topk[{backend}] (Q={Q}, nlist="
+                      f"{NLIST}, L={L_MAIN}, nprobe={nprobe}, k={k}): "
+                      f"max_abs_err {err:.3g} {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(
+                        f"fused_ivf_topk[{backend}] nprobe={nprobe} k={k} "
+                        "disagrees with fused_ivf_topk_ref")
+                del got, want, cut
+                if backend not in ("int8", "onebit"):
+                    continue
+                if (nprobe, k) == (NPROBE, K):
+                    pre = "" if backend == "int8" else "onebit_"
+                    rec[f"{pre}max_abs_err"] = err
+                rec.update(time_ivf(args, backend, dim, nprobe, k, rates))
+            del args, probes, qe, store, ids, base
     torch.cuda.empty_cache()
     rec.update(check_ivf_large_k(gen))
     print(f"[kernel] fused_ivf_topk: {json.dumps(rec)}")
     return rec
+
+
+def time_ivf(args, backend: str, dim: int, nprobe: int, k: int,
+             rates) -> dict:
+    """Times of one fused_ivf_topk shape beside its bound, the bytes its
+    stages move and its sub-kernels' device ms; the main shape (nprobe
+    64, k = 10) under the record's plain keys."""
+    byte_rate, bf16_rate, int8_rate, f32_rate = rates
+    probes, qe, store, ids, base = args
+    # bound: each distinct probed list's rows and ids once, queries,
+    # probes, base and outputs; the valid (query, row) pairs' products
+    counts = torch.bincount(probes.reshape(-1).long(), minlength=NLIST)
+    n_lists = int((counts > 0).sum())
+    row_bytes = store.shape[-1] * store.element_size()
+    n_bytes = (n_lists * L_MAIN * (row_bytes + 4)
+               + qe.numel() * qe.element_size() + probes.numel() * 8
+               + Q * k * 8)
+    pairs = int((ids[probes.long()] >= 0).sum())
+    n_ops = 2.0 * pairs * dim
+    b_ms, b_by = bound(n_bytes, n_ops,
+                       bf16_rate if backend == "int8" else int8_rate,
+                       byte_rate)
+    # what the stages move: each group of 32 (query, slot) pairs reads its
+    # list once; the (Q, nprobe, m) candidates are written and read once
+    m = candidates_per_pair(k, L_MAIN)
+    list_reads = int(((counts + 31) // 32).sum()) * L_MAIN * (row_bytes + 4)
+    cand_bytes = 2 * Q * nprobe * m * 8
+    ms = cuda_ms(lambda: fused_ivf_topk(*args, k, backend), 10)
+    plain_ms = cuda_ms(
+        lambda: fused_ivf_topk_ref(*args, k=k, backend=backend), 1)
+    subs = ivf_sub_kernels(lambda: fused_ivf_topk(*args, k, backend))
+    print(f"[kernel] fused_ivf_topk[{backend}] nprobe {nprobe} k {k}: "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; {n_bytes / 1e9:.4f} GB, {n_ops / 1e9:.3f} GOP); "
+          f"reads {list_reads / 1e9:.4f} GB of lists ({n_lists} distinct), "
+          f"candidates {cand_bytes / 1e9:.4f} GB written+read")
+    print(f"[profile] fused_ivf_topk[{backend}] nprobe {nprobe} k {k}: "
+          + "; ".join(f"{name} {t:.4f} ms" for name, t in subs.items()))
+    pre = "" if backend == "int8" else "onebit_"
+    if (nprobe, k) != (NPROBE, K):
+        pre += f"nprobe{nprobe}_k{k}_"
+    return {f"{pre}ms": ms, f"{pre}plain_ms": plain_ms,
+            f"{pre}bound_ms": b_ms, f"{pre}bound_by": b_by,
+            f"{pre}list_gb_read": list_reads / 1e9,
+            f"{pre}bound_gb": n_bytes / 1e9, f"{pre}sub_kernels_ms": subs,
+            f"{pre}distinct_lists": n_lists}
 
 
 def quantize_case(gen, n: int, d: int, d_out: int, n_fit: int = 65536):

@@ -34,58 +34,17 @@
 
 #include <cstdint>
 
+#include "mma_util.cuh"
+
 namespace {
+
+using namespace mma_util;
 
 constexpr int BN = 128;       // documents per tile
 constexpr int THREADS = 256;  // 8 warps: 2 (queries) × 4 (documents)
 constexpr int STG = 40;       // staging row stride in floats (no conflicts)
 constexpr int STAGE_FLOATS = 8 * 32 * STG;
 constexpr int MAX_KP = 2048;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <int V>
-__device__ __forceinline__ void copy_async(void* dst, const uint8_t* src) {
-  if constexpr (V == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     smem_addr(dst)), "l"(src));
-  } else if constexpr (V == 8 || V == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                     smem_addr(dst)), "l"(src), "n"(V));
-  } else {
-    *static_cast<uint8_t*>(dst) = *src;
-  }
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// two code bytes → bf16x2 (the lower byte in the lower half); exact
-__device__ __forceinline__ uint32_t u8x2_to_bf16x2(uint32_t w, int lo) {
-  const float a = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 + lo))
-                  - 8388608.f;
-  const float b = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7441 + lo))
-                  - 8388608.f;
-  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // Shared memory: [staging: 8 warps × 32 × STG f32][codes: 2 stages × BN
 // rows × sw bytes][queries: BM rows × (2·kp + 8) bytes].  A code stage row

@@ -10,11 +10,14 @@ at first use.
 
 - ``int8_ip``     : int8 index scoring, bf16(q⊙scale) × u8 with f32 sums on
                     the tensor cores, + a per-query bias (q·zero).
-- ``binary_ip``   : 1-bit index scoring, XOR + popcount over packed words.
+- ``binary_ip``   : 1-bit index scoring, the sign dot on the tensor cores
+                    (s8 × 0/1 bits), written as the f32 score 0.25·dot.
 - ``topk_blocks`` : per-block top-k, stage 1 of the exact two-stage top-k,
                     one pass over each block whatever k is.
-- ``ivf_fused``   : IVF search, probed lists gathered, scored and ranked in
-                    one kernel (wrapper ``fused_ivf_topk``).
+- ``ivf_fused``   : IVF search, list-major: the probe table inverted, each
+                    probed list scored once for its (query, slot) pairs,
+                    each query's candidates merged (wrapper
+                    ``fused_ivf_topk``).
 - ``fused_quantize``: the one-pass doc encode of the pre+post-normalized
                     24× recipe (center+normalize, PCA, center+normalize,
                     int8).

@@ -38,19 +38,24 @@ _i = ctypes.c_int
 SIGNATURES = {
     # (q bf16, docs u8, bias f32 | null, out f32, n_q, n_docs, d, stream)
     "int8_ip_launch": [_p, _p, _p, _p, _i, _i, _i, _p],
-    # (q words, docs words, out i32, n_q, n_docs, n_words, stream)
-    "binary_ip_launch": [_p, _p, _p, _i, _i, _i, _p],
+    # (q signs i8, q row stride, docs words, docs row stride, out f32, n_q,
+    #  n_docs, n_words, accumulate, stream)
+    "binary_ip_launch": [_p, _i, _p, _i, _p, _i, _i, _i, _i, _p],
     # (scores f32, vals f32, idx i32, sort scratch u64 | null, n_q, n_d, k,
     #  block_d, n_blocks, sort length, stream)
     "topk_blocks_launch": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p],
     # (probes i32, q, storage, list ids i32, base f32, vals f32, ids i32,
-    #  scratch f32 | null, scratch i32 | null, n_q, nprobe, nlist, L, w, k,
-    #  backend, stream)
-    "ivf_fused_launch": [_p] * 9 + [_i] * 7 + [_p],
+    #  work i32, candidates f32, candidates i32, scratch f32 | null,
+    #  scratch i32 | null, n_q, nprobe, nlist, L, w, k, m, backend, stream)
+    "ivf_fused_launch": [_p] * 12 + [_i] * 8 + [_p],
+    # (n_q, nprobe, nlist) → int32s of ivf_fused_launch's work buffer
+    "ivf_fused_work_ints": [_i, _i, _i],
     # (x f32, mu1, w, mu2, scale, zero f32, scratch f32 | null, out u8, n,
     #  d, d_out, stream)
     "fused_quantize_launch": [_p] * 8 + [_i] * 3 + [_p],
 }
+#: entry points that return something other than a cudaError_t
+RESTYPES = {"ivf_fused_work_ints": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:
@@ -136,7 +141,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -61,9 +61,8 @@ def binary_ip_scores(queries: torch.Tensor, docs_packed: torch.Tensor,
     """
     q_signs = _query_signs(queries, docs_packed.shape[-1], d)
     d_packed = docs_packed.shape[-1] * 32   # includes encoder padding
-    dot = binary_ip if use_kernel else _ref.sign_dot_ref
-    # scaled in place: the (Q, D) matrix is the largest buffer on the path
-    scores = dot(q_signs, docs_packed).float().mul_(0.25)
+    score = binary_ip if use_kernel else _ref.binary_ip_ref
+    scores = score(q_signs, docs_packed)      # f32 0.25·dot
     if offset == 0.5:
         return scores
     sum_d = _sign_sums_from_packed(docs_packed, d_packed)[None, :]

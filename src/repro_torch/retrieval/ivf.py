@@ -9,11 +9,12 @@ compounds with the paper's compression.
 Two search paths give the same ranking in the strict (score desc, id asc)
 order:
 
-* the fused path — route, then one ``ivf_fused`` kernel launch per query
-  chunk gathers, scores and ranks the probed lists from a list-major copy
-  of the storage (:meth:`IVFIndex._list_major_layout`).  It serves the
-  inner product for every backend (1-bit with the paper's offset 0.5)
-  wherever the scorer uses kernel numerics;
+* the fused path — route, then one ``ivf_fused`` call for the whole batch
+  gathers, scores and ranks the probed lists from a list-major copy of the
+  storage (:meth:`IVFIndex._list_major_layout`); it scores each probed
+  list once for all the batch's queries that probe it, so it takes the
+  batch whole.  It serves the inner product for every backend (1-bit with
+  the paper's offset 0.5) wherever the scorer uses kernel numerics;
 * the streaming path — ``PROBE_BLOCK`` probed lists at a time are gathered
   and scored through ``Scorer.scores_gathered`` and folded into a running
   top-k (``merge_topk_block``).  Everything else runs here, and it is the
@@ -402,7 +403,10 @@ class IVFIndex:
 
         Slots no probed list can fill come back as (−inf, −1); with
         ``nprobe == nlist`` every doc is reachable and the ranking is
-        exact search's.
+        exact search's.  ``query_chunk`` bounds the streaming path's
+        gathered block; the fused path takes the batch whole (each list
+        is read once for all the queries that probe it; the kernel's
+        wrapper bounds its own buffers).
         """
         if self.storage is None:
             raise ValueError("IVFIndex is not fitted")
@@ -416,17 +420,14 @@ class IVFIndex:
         k = resolve_k(k, self._n_docs)
         queries = as_tensor(queries, self.device)
         params = self.scorer.params()
-        fused = self._use_fused_kernel
-        if fused:
-            list_storage, list_ids = self._list_major_layout()
+        if self._use_fused_kernel:
+            vals, ids = self._fused_search(queries, k, nprobe, params,
+                                           *self._list_major_layout())
+            return vals, ids.long()
         vals, ids = [], []
         for s in range(0, queries.shape[0], query_chunk):
-            qc = queries[s: s + query_chunk]
-            if fused:
-                v, i = self._fused_search(qc, k, nprobe, params,
-                                          list_storage, list_ids)
-            else:
-                v, i = self._streaming_search(qc, k, nprobe, params)
+            v, i = self._streaming_search(queries[s: s + query_chunk], k,
+                                          nprobe, params)
             vals.append(v)
             ids.append(i)
         return torch.cat(vals), torch.cat(ids).long()

@@ -7,6 +7,12 @@ interpret mode, as ``tests/test_ivf_fused.py`` runs it — and through the
 port's ``ops.fused_ivf_topk`` on CPU tensors, which runs the plain version
 the CUDA kernel is held against on the card.
 
+The plain mirror of the card's list-major stages (``list_major_topk_ref``:
+invert the probe table, score each list once for its (query, slot) pairs
+and keep each pair's top-min(k, L), merge per query) is held to both, on
+lists probed by every query, a query probing one list twice, heavy score
+ties, pad ids, a residual base, k > L and k > ``MAX_K``.
+
 Bars: 1-bit scores are 0.25 × integer sign dots, so ids and score bits
 are equal.  float, fp16 and int8 use the same numerics on both sides
 (int8 as bf16 q⊙scale × u8, each product exact in f32), so only the order
@@ -26,7 +32,8 @@ from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.ivf_fused import ops as p_ops  # noqa: E402
 from repro_torch.kernels.ivf_fused.kernel import (MAX_K,  # noqa: E402
                                                   fused_ivf_topk)
-from repro_torch.kernels.ivf_fused.ref import BACKENDS  # noqa: E402
+from repro_torch.kernels.ivf_fused.ref import (  # noqa: E402
+    BACKENDS, fused_ivf_topk_ref, list_major_topk_ref)
 
 NLIST, L, DIM, Q = 24, 40, 48, 12
 
@@ -79,6 +86,86 @@ def _repro(backend, k, q, store, ids, probes, params, extra):
         extra_base=None if extra is None else jnp.asarray(extra),
         use_pallas=True)
     return np.asarray(v), np.asarray(i)
+
+
+def _mirror_inputs(backend, q, store, ids, probes, params, extra):
+    """The kernel wrapper's arguments, prepared as ``ops.fused_ivf_topk``
+    prepares them."""
+    probes_t, q_t, store_t, ids_t, params_t, extra_t = _port_inputs(
+        q, store, ids, probes, params, extra)
+    qe, base_q = p_ops.prepare_queries(
+        q_t, backend, params_t,
+        packed_width=store_t.shape[-1] if backend == "onebit" else None)
+    base = base_q[:, None].expand(probes_t.shape).float()
+    if extra_t is not None:
+        base = base + extra_t
+    return probes_t, qe, store_t, ids_t, base
+
+
+def _mirror(backend, k, *case):
+    v, i = list_major_topk_ref(*_mirror_inputs(backend, *case), k, backend)
+    return v.numpy(), i.numpy()
+
+
+def _list_major_case(backend, kind, seed=7):
+    """Every query probes every list (each list probed by all Q queries);
+    ``twice``: some queries probe one list in two slots; ``ties``: small
+    integer rows and queries, so scores tie heavily."""
+    q, store, ids, probes, params, extra = _case(backend, NLIST, True,
+                                                 seed=seed)
+    if kind == "twice":
+        probes[::2, 1] = probes[::2, 0]
+    elif kind == "ties":
+        rng = np.random.default_rng(seed)
+        q = rng.integers(-1, 2, q.shape).astype(np.float32)
+        if backend in ("float", "fp16"):
+            store = rng.integers(-1, 2, store.shape).astype(store.dtype)
+        elif backend == "int8":
+            store = rng.integers(0, 3, store.shape).astype(np.uint8)
+        store[ids < 0] = 0
+        extra = np.round(extra)
+    return q, store, ids, probes, params, extra
+
+
+@pytest.mark.parametrize("kind", ["all_queries", "twice", "ties"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_list_major_mirror_matches_repro_pallas(backend, kind):
+    """The list-major mirror ranks as ``repro``'s interpret-mode kernel
+    at k = 10 (each pair keeps its top-10 of a 40-row list)."""
+    case = _list_major_case(backend, kind)
+    want = _repro(backend, 10, *case)
+    got = _mirror(backend, 10, *case)
+    assert_same_ranking(got, want, exact=backend == "onebit")
+    assert_same_ranking(got, _port(backend, 10, *case), exact=True)
+
+
+@pytest.mark.parametrize("k", [3, 39, 40, 41, 100, MAX_K + 1, 2500])
+@pytest.mark.parametrize("kind", ["all_queries", "twice", "ties"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_list_major_mirror_matches_the_slot_fold(backend, kind, k):
+    """Bit for bit the plain version's slot-by-slot fold, for k below,
+    at and above L = 40, above MAX_K and beyond the reachable rows (the
+    tail (−inf, −1))."""
+    args = _mirror_inputs(backend, *_list_major_case(backend, kind))
+    got = list_major_topk_ref(*args, k, backend)
+    want = fused_ivf_topk_ref(*args, k, backend)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+def test_list_major_mirror_skips_probes_outside_the_lists():
+    """A probe outside [0, nlist) contributes nothing (the kernel skips its
+    pairs and its candidates)."""
+    case = list(_list_major_case("int8", "all_queries"))
+    probes = case[3].copy()
+    probes[:, 5] = -1
+    probes[:, 6] = NLIST
+    args = _mirror_inputs("int8", *case[:3], probes, *case[4:])
+    keep = [j for j in range(NLIST) if j not in (5, 6)]
+    want = fused_ivf_topk_ref(args[0][:, keep], args[1], args[2], args[3],
+                              args[4][:, keep], 30, "int8")
+    got = list_major_topk_ref(*args, 30, "int8")
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 def _port(backend, k, q, store, ids, probes, params, extra):
@@ -147,7 +234,10 @@ def test_k_above_the_shared_memory_top_k_matches_repro():
     got = _port(backend, 1100, *case)
     assert got[0].shape == (int(keep.sum()), 1100) and MAX_K < 1100
     assert (got[1][:, -1] >= 0).all()        # every slot holds a real row
-    assert_same_ranking(got, _repro(backend, 1100, *case),
+    want = _repro(backend, 1100, *case)
+    assert_same_ranking(got, want, exact=backend == "onebit")
+    # the list-major mirror: each pair hands over its whole 800-row list
+    assert_same_ranking(_mirror(backend, 1100, *case), want,
                         exact=backend == "onebit")
 
 

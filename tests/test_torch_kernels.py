@@ -5,7 +5,8 @@ The Pallas kernels run with ``interpret=True`` on the CPU, as
 wrappers run these plain versions; the CUDA kernels themselves are held
 against the same plain versions on the card by ``chip_smoke.py``.
 
-Bars: binary_ip and topk_blocks exactly (integer arithmetic / ordering);
+Bars: binary_ip and topk_blocks exactly (integer arithmetic, scores that
+are 0.25 × an integer / ordering);
 int8_ip to atol = 1e-5·max|scores| (f32 summation order), and the ops to
 the reference's own bars (``tests/test_kernels.py``).
 """
@@ -29,7 +30,8 @@ from repro_torch.core.quantization import words_from_numpy  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.binary_ip import ops as p_bops  # noqa: E402
 from repro_torch.kernels.binary_ip.kernel import binary_ip  # noqa: E402
-from repro_torch.kernels.binary_ip.ref import sign_dot_ref  # noqa: E402
+from repro_torch.kernels.binary_ip.ref import (binary_ip_ref,  # noqa: E402
+                                               sign_dot_ref)
 from repro_torch.kernels.int8_ip import ops as p_iops  # noqa: E402
 from repro_torch.kernels.int8_ip.kernel import int8_ip  # noqa: E402
 from repro_torch.kernels.int8_ip.ref import int8_ip_ref  # noqa: E402
@@ -140,9 +142,11 @@ def test_sign_dot_ref_matches_pallas(q, d, dim, bq, bd):
     got = sign_dot_ref(torch.from_numpy(signs), words_from_numpy(words))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(
-        binary_ip(torch.from_numpy(signs), words_from_numpy(words)).numpy(),
-        want)
+    # the kernel's entry writes the scaled f32 score, 0.25·dot, exactly
+    scores = binary_ip(torch.from_numpy(signs), words_from_numpy(words))
+    assert scores.dtype == torch.float32
+    np.testing.assert_array_equal(scores.numpy(),
+                                  0.25 * want.astype(np.float32))
 
 
 @pytest.mark.parametrize("offset", [0.5, 0.0, 0.25])
@@ -165,6 +169,45 @@ def test_binary_ip_scores_both_backends(offset, dim):
         ref = np.asarray(r_bref.binary_ip_scores_ref(
             pack_bits(jnp.asarray(queries)), jnp.asarray(words), dim, offset))
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+def _bits(a):
+    return np.asarray(a, dtype=np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("offset", [0.5, 0.0, 0.25])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n_words,q,d", [(1, 7, 33), (3, 5, 101),
+                                         (8, 13, 257), (9, 3, 65)])
+def test_binary_ip_f32_scores_match_repro_pallas(n_words, q, d, packed,
+                                                 offset):
+    """The f32 entry's plain version (what CPU tensors run) against
+    ``repro``'s ``binary_ip_scores(use_pallas=True)`` in interpret mode,
+    bit for bit: 1, 3, 8 and 9 words, odd Q and D, float queries (the
+    packed width padded past d) and packed ones, and the α ≠ 0.5 offset
+    terms added to the new f32 values."""
+    rng = np.random.default_rng(100 * n_words + q)
+    dim = 32 * n_words if packed else 32 * n_words - 5
+    queries, docs = _rand(rng, q, dim), _rand(rng, d, dim)
+    docs_p = np.pad(docs, ((0, 0), (0, 32 * n_words - dim)),
+                    constant_values=-1.0)
+    words = np.asarray(pack_bits(jnp.asarray(docs_p)))
+    q_r = pack_bits(jnp.asarray(queries)) if packed else jnp.asarray(queries)
+    want = np.asarray(r_bops.binary_ip_scores(
+        q_r, jnp.asarray(words), dim, offset=offset, use_pallas=True,
+        interpret=True, block_q=8, block_d=16))
+    q_p = words_from_numpy(np.asarray(q_r)) if packed \
+        else torch.from_numpy(queries)
+    words_t = words_from_numpy(words)
+    got = p_bops.binary_ip_scores(q_p, words_t, dim, offset=offset,
+                                  use_kernel=True)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    if offset == 0.5:   # the entry itself, and its plain version
+        signs = p_bops._query_signs(q_p, n_words, dim)
+        for entry in (binary_ip, binary_ip_ref):
+            np.testing.assert_array_equal(
+                _bits(entry(signs, words_t).numpy()), _bits(want))
 
 
 def test_binary_ip_scores_packed_queries():
