@@ -21,8 +21,11 @@ Phases, each printed as it runs:
    the shared-memory top-k, and int8 at k=16,384 and 282,778, the
    deepest probe of the seg_ivf_24x cell before it needs a compaction,
    each IVF shape timed with its sub-kernels' device ms from one traced
-   call; the encode at (1M, 768) → 128, and ragged widths up to 384
-   outputs)
+   call; the encode at (1M, 768) → 128 — its GB/s, share of its bytes
+   bound, W's L2 bytes and an add's 16,384 rows — and ragged widths up
+   to 384 outputs, d = 77 and rows off 16-byte boundaries, with the share
+   of codes that differ from ``fused_quantize_split_ref``, the plain
+   mirror of its split-bf16 numerics, printed as information)
    and is held against its plain PyTorch version on the same inputs:
    binary_ip, topk_blocks and 1-bit IVF exactly, the f32 sums of int8_ip
    and float/fp16/int8 IVF to atol = 1e-5·max|plain| (summation order),
@@ -97,9 +100,9 @@ from repro_torch.kernels import (_build, launch_counts,  # noqa: E402
 from repro_torch.kernels.binary_ip.kernel import binary_ip  # noqa: E402
 from repro_torch.kernels.binary_ip.ref import binary_ip_ref  # noqa: E402
 from repro_torch.kernels.fused_quantize.kernel import (  # noqa: E402
-    fused_quantize)
+    fused_quantize, tile_rows, w_l2_bytes)
 from repro_torch.kernels.fused_quantize.ref import (  # noqa: E402
-    fused_quantize_ref)
+    fused_quantize_ref, fused_quantize_split_ref)
 from repro_torch.kernels.int8_ip.kernel import int8_ip  # noqa: E402
 from repro_torch.kernels.int8_ip.ref import int8_ip_ref  # noqa: E402
 from repro_torch.kernels.ivf_fused.kernel import (  # noqa: E402
@@ -739,6 +742,15 @@ def codes_agree(got, want) -> tuple[bool, int, float]:
     return worst <= 1 and share < 0.01, worst, share
 
 
+def _unaligned(x):
+    """``x`` copied to a view whose rows start 4 bytes past a 16-byte
+    boundary (the kernel's 4-byte copies)."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def phase_quantize_kernel(rates) -> dict:
     """fused_quantize at the build's shapes, (1M, 768) → 128, against the
     four staged passes, plus ragged shapes and row independence."""
@@ -755,8 +767,16 @@ def phase_quantize_kernel(rates) -> dict:
           f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise AssertionError("fused_quantize disagrees with its plain version")
+    # information, not a bar: the plain mirror of the kernel's own numerics
+    # (three bf16 products) differs from it only by the order of f32 sums
+    _, worst_s, share_s = codes_agree(got, fused_quantize_split_ref(x,
+                                                                    *params))
+    print(f"[kernel] fused_quantize vs fused_quantize_split_ref (the split "
+          f"product in plain torch): max code diff {worst_s}, share "
+          f"differing {share_s:.3g}")
     # a row's codes depend on that row alone: a permuted odd-sized subset
-    # (and a single row) encodes to the full encode's rows, bit for bit
+    # (and a single row, on 128-row tiles) encodes to the full encode's rows,
+    # bit for bit
     perm = torch.randperm(n, device="cuda", generator=gen)[:65537]
     one = fused_quantize(x[777:778], *params)
     same = torch.equal(fused_quantize(x[perm], *params), got[perm]) and \
@@ -766,11 +786,18 @@ def phase_quantize_kernel(rates) -> dict:
     if not same:
         raise AssertionError("fused_quantize codes depend on the batch")
     cases = [(one, fused_quantize_ref(x[777:778], *params), (1, d, d_out))]
-    # above 256 outputs the kernel takes several passes through a scratch
+    # above 128 outputs the kernel takes several passes through a scratch;
+    # d % 4 != 0 and rows off 16-byte boundaries take 4-byte copies; a
+    # scale above the epilogue's fast division's range takes its `/` path
     wide = ((257, 96, 32), (1000, 64, 16), (600, 288, 256), (600, 768, 384),
-            (1000, 320, 300))
+            (1000, 320, 300), (333, 77, 24), (1001, 768, 128), (500, 96, 40))
     for shape in wide:
         xr, pr = quantize_case(gen, *shape, n_fit=shape[0])
+        if shape == (1001, 768, 128):
+            xr = _unaligned(xr)
+        if shape == (500, 96, 40):
+            pr = (*pr[:3], pr[3].clone().index_fill_(0, torch.tensor(
+                [5], device="cuda"), 1e30), pr[4])
         full = fused_quantize(xr, *pr)
         cases.append((full, fused_quantize_ref(xr, *pr), shape))
         sub = torch.randperm(shape[0], device="cuda", generator=gen)[:131]
@@ -783,24 +810,44 @@ def phase_quantize_kernel(rates) -> dict:
             raise AssertionError(f"fused_quantize disagrees at {shape}: max "
                                  f"{worst_r}, share {share_r:.3g}")
     print("[kernel] fused_quantize ragged (1, 768)->128, " + ", ".join(
-        f"({n_}, {d_})->{o_}" for n_, d_, o_ in wide) + ": within the bar, "
-        "a permuted 131-row subset of each bit-identical")
+        f"({n_}, {d_})->{o_}" for n_, d_, o_ in wide) + " ((1001, 768) with "
+        "its rows 4 bytes off 16-byte boundaries, (500, 96) with a scale of "
+        "1e30): within the bar, a permuted 131-row subset of each "
+        "bit-identical")
     mu1, w = params[0], params[1]
-    b_ms, b_by = bound(n * d * 4 + n * d_out + (d * d_out + d + 3 * d_out) * 4,
-                       2.0 * n * d * d_out, f32_rate, byte_rate)
+    n_bytes = n * d * 4 + n * d_out + (d * d_out + d + 3 * d_out) * 4
+    # three bf16 products on the tensor cores; one f32 product on the CUDA
+    # cores was the earlier kernel's bound
+    b_ms, b_by = bound(n_bytes, 3 * 2.0 * n * d * d_out, bf16_rate,
+                       byte_rate)
+    b32_ms, b32_by = bound(n_bytes, 2.0 * n * d * d_out, f32_rate, byte_rate)
+    rows = tile_rows(n, x.device)
     rec = {
         "name": "fused_quantize", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_quantize.cu",
         "replaces": "src/repro/kernels/fused_quantize/kernel.py:58",
         "max_abs_err": float(worst), "share_differing": share,
+        "share_differing_split_ref": share_s,
         "ms": cuda_ms(lambda: fused_quantize(x, *params), 10),
         "plain_ms": cuda_ms(lambda: fused_quantize_ref(x, *params), 3),
         "bound_ms": b_ms, "bound_by": b_by,
+        "bound_f32_ms": b32_ms, "bound_f32_by": b32_by,
         "library_ms": cuda_ms(lambda: torch.mm(x, w), 10),
         "library_note": "torch.mm (N, 768) x (768, 128) f32, tf32 off: the "
                         "product alone",
-        "shape": f"N={n} d={d} d_out={d_out}"}
-    del x, got, want, perm, mu1, w, params
+        "shape": f"N={n} d={d} d_out={d_out}", "tile_rows": rows,
+        "w_l2_gb": w_l2_bytes(n, d, d_out, rows) / 1e9}
+    x16 = x[:ADD_ROWS].clone()
+    rec["add_rows_ms"] = cuda_ms(lambda: fused_quantize(x16, *params), 20)
+    rec["gb_per_s"] = n_bytes / 1e9 / (rec["ms"] / 1e3)
+    print(f"[kernel] fused_quantize: {rec['ms']:.4f} ms, "
+          f"{rec['gb_per_s']:.1f} GB/s, {b_ms / rec['ms']:.3f} of its bound "
+          f"({b_ms:.4f} ms, {b_by}; f32 on the CUDA cores {b32_ms:.4f} ms); "
+          f"W read from L2 {rec['w_l2_gb']:.3f} GB ({rows}-row tiles) "
+          f"against {n * d * 4 / 1e9:.3f} GB of x; {ADD_ROWS} rows (an add) "
+          f"{rec['add_rows_ms']:.4f} ms ({tile_rows(ADD_ROWS, x.device)}-row "
+          f"tiles)")
+    del x, x16, got, want, perm, mu1, w, params
     torch.cuda.empty_cache()
     print(f"[kernel] fused_quantize: {json.dumps(rec)}")
     return rec

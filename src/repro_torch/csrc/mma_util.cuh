@@ -1,6 +1,6 @@
 // Helpers shared by the tensor-core kernels (int8_ip.cu, binary_ip.cu,
-// ivf_fused.cu): cp.async copies into shared memory, u8 → bf16 in
-// registers, and the two mma.sync shapes they use.
+// ivf_fused.cu, fused_quantize.cu): cp.async copies into shared memory,
+// u8 → bf16 in registers, and the two mma.sync shapes they use.
 
 #pragma once
 

@@ -50,9 +50,9 @@ SIGNATURES = {
     "ivf_fused_launch": [_p] * 12 + [_i] * 8 + [_p],
     # (n_q, nprobe, nlist) → int32s of ivf_fused_launch's work buffer
     "ivf_fused_work_ints": [_i, _i, _i],
-    # (x f32, mu1, w, mu2, scale, zero f32, scratch f32 | null, out u8, n,
-    #  d, d_out, stream)
-    "fused_quantize_launch": [_p] * 8 + [_i] * 3 + [_p],
+    # (x f32, mu1, w, mu2, scale, zero f32, work u8, scratch f32 | null,
+    #  out u8, n, d, kp, d_out, dp, tile rows, stream)
+    "fused_quantize_launch": [_p] * 9 + [_i] * 6 + [_p],
 }
 #: entry points that return something other than a cudaError_t
 RESTYPES = {"ivf_fused_work_ints": ctypes.c_longlong}

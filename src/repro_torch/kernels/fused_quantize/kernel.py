@@ -2,8 +2,11 @@
 
 Replaces ``repro.kernels.fused_quantize.kernel.fused_quantize_pallas``:
 (N, d) f32 documents → (N, d′) uint8 codes through center+normalize, the
-PCA product, center+normalize and the int8 encode, in one pass.  CUDA
-tensors launch the kernel (or raise); CPU tensors run
+PCA product, center+normalize and the int8 encode, in one pass, with the
+product on the tensor cores as three bf16 products (W split into bf16 hi
+and lo once a call by the kernel's pre-pass, as
+:func:`~repro_torch.kernels.fused_quantize.ref.split_bf16` splits it).
+CUDA tensors launch the kernel (or raise); CPU tensors run
 :func:`~repro_torch.kernels.fused_quantize.ref.fused_quantize_ref`.
 """
 
@@ -14,9 +17,31 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_quantize.ref import fused_quantize_ref
 
-#: output columns a CTA covers per pass (16 a thread over 16 column
-#: groups); wider outputs take several passes through an f32 scratch
-PASS_D_OUT = 256
+#: output columns a pass covers; wider outputs take several passes through
+#: an f32 scratch
+PASS_D_OUT = 128
+#: dims a pipeline stage covers: d is zero-padded to a multiple
+K_CHUNK = 32
+#: rows a CTA's tile covers; a batch of fewer than this many rows an SM
+#: takes half-height tiles, to fill the card
+TILE_ROWS = 256
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def tile_rows(n: int, device) -> int:
+    """The kernel's tile height for an ``n``-row batch on ``device``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return TILE_ROWS if -(-n // TILE_ROWS) >= sms else TILE_ROWS // 2
+
+
+def w_l2_bytes(n: int, d: int, d_out: int, rows: int) -> int:
+    """Bytes of W_hiᵀ and W_loᵀ the kernel reads from L2 at (n, d) → d_out:
+    every tile reads every pass's chunks once."""
+    kp, dp = _round_up(d, K_CHUNK), _round_up(d_out, PASS_D_OUT)
+    return -(-n // rows) * dp * kp * 2 * 2
 
 
 def fused_quantize(x: torch.Tensor, mu1: torch.Tensor, w: torch.Tensor,
@@ -39,22 +64,29 @@ def fused_quantize(x: torch.Tensor, mu1: torch.Tensor, w: torch.Tensor,
         return fused_quantize_ref(x, mu1, w, mu2, scale, zero)
     if x.device.type != "cuda":
         raise ValueError(f"fused_quantize: unsupported device {x.device}")
+    dev = x.device
     xs = x.float().contiguous()
     mu1, w, mu2, scale, zero = (t.float().contiguous()
                                 for t in (mu1, w, mu2, scale, zero))
     n = xs.shape[0]
-    out = torch.empty((n, d_out), dtype=torch.uint8, device=xs.device)
-    scratch = (torch.empty((n, d_out), dtype=torch.float32, device=xs.device)
-               if d_out > PASS_D_OUT else None)
-    if n:
-        with torch.cuda.device(xs.device):
-            _build.check(_build.library().fused_quantize_launch(
-                xs.data_ptr(), mu1.data_ptr(), w.data_ptr(), mu2.data_ptr(),
-                scale.data_ptr(), zero.data_ptr(),
-                None if scratch is None else scratch.data_ptr(),
-                out.data_ptr(), n, d, d_out, _build.stream_handle(xs)),
-                "fused_quantize")
-        fused_quantize.launches += 1
+    kp, dp = _round_up(d, K_CHUNK), _round_up(d_out, PASS_D_OUT)
+    out = torch.empty((n, d_out), dtype=torch.uint8, device=dev)
+    if not n:
+        return out
+    # the kernel's pre-pass writes Wᵀ split (hi, lo) and μ₁, μ₂′, scale
+    # and zero padded here
+    work = torch.empty(4 * dp * kp + 4 * kp + 12 * dp, dtype=torch.uint8,
+                       device=dev)
+    scratch = (torch.empty((n, dp), dtype=torch.float32, device=dev)
+               if dp > PASS_D_OUT else None)
+    with torch.cuda.device(dev):
+        _build.check(_build.library().fused_quantize_launch(
+            xs.data_ptr(), mu1.data_ptr(), w.data_ptr(), mu2.data_ptr(),
+            scale.data_ptr(), zero.data_ptr(), work.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            n, d, kp, d_out, dp, tile_rows(n, dev),
+            _build.stream_handle(xs)), "fused_quantize")
+    fused_quantize.launches += 1
     return out
 
 

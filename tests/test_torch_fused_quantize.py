@@ -10,6 +10,13 @@ codes differ by at most 1, on fewer than 1% of the elements.  The port's
 plain version equals its own staged four-pass encode bit for bit, its
 rows do not depend on the batch, and ``encode_storage`` takes the fused
 route only for the fusable stage list with kernel numerics.
+
+``fused_quantize_split_ref`` mirrors the kernel's numerics (the product as
+three bf16 products, the first normalize after it): it is held within the
+same bar against ``repro``'s interpret-mode Pallas kernel and against the
+plain version on DPR-like data at the paper's widths, its W split
+reconstructs W to bf16's second word, and its rows do not depend on the
+batch.
 """
 
 import jax.numpy as jnp
@@ -28,6 +35,8 @@ from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.fused_quantize import ops as p_ops  # noqa: E402
 from repro_torch.kernels.fused_quantize.kernel import (  # noqa: E402
     fused_quantize)
+from repro_torch.kernels.fused_quantize.ref import (  # noqa: E402
+    fused_quantize_ref, fused_quantize_split_ref, split_bf16)
 from repro_torch.retrieval import scorers as p_scorers  # noqa: E402
 
 #: (n, d, d′, Pallas block_n): repro's two cases and the paper's widths
@@ -158,7 +167,7 @@ def test_encode_storage_takes_the_fused_route_only_when_fusable(
 
 @pytest.mark.parametrize("n,d,dc", [(600, 768, 384), (1000, 320, 300)])
 def test_encode_storage_fuses_any_output_width(monkeypatch, n, d, dc):
-    """Outputs wider than one 256-column pass of the kernel still take the
+    """Outputs wider than one 128-column pass of the kernel still take the
     fused route, and stay within the bar of the staged encode."""
     from repro_torch.core.registry import build_pipeline_from_spec
 
@@ -207,3 +216,73 @@ def test_wrapper_checks_and_cpu_launches_do_not_count():
         fused_quantize(x, mu1[:5], w, mu2, scale, zero)
     with pytest.raises(TypeError, match="float"):
         fused_quantize(x.to(torch.int32), mu1, w, mu2, scale, zero)
+
+
+@pytest.mark.parametrize("n,d,dc,bn", CASES)
+def test_split_mirror_matches_repro_kernel(n, d, dc, bn):
+    """The kernel's numerics (three bf16 products) against ``repro``'s
+    interpret-mode Pallas kernel, within repro's bar."""
+    docs, queries = _data(n, d)
+    rpipe = _repro_pipeline(docs, queries, dc)
+    params = p_ops.params_from_pipeline(_port_pipeline(rpipe))
+    got = fused_quantize_split_ref(torch.from_numpy(docs), *params)
+    assert got.dtype == torch.uint8 and got.shape == (n, dc)
+    pallas = r_ops.fused_quantize(jnp.asarray(docs), rpipe, use_pallas=True,
+                                  interpret=True, block_n=bn)
+    _assert_within_bar(got.numpy(), pallas)
+
+
+def _dpr_params(n, dc):
+    from repro_torch.data import make_dpr_like_kb
+
+    kb = make_dpr_like_kb(n_queries=64, n_docs=n, d=768, seed=0,
+                          device="cpu")
+    pipe = CompressionPipeline([CenterNorm(), PCA(dc), CenterNorm(),
+                                Int8Quantizer()])
+    pipe.fit(kb.docs, kb.queries)
+    return kb.docs, p_ops.params_from_pipeline(pipe)
+
+
+@pytest.mark.parametrize("n,dc", [(4096, 128), (4096, 384)])
+def test_split_mirror_within_the_bar_on_dpr_like_data(n, dc):
+    """At the paper's widths on DPR-like rows (where one bf16 product moves
+    3% of the codes) the three-product split keeps the bar with room:
+    under 0.1% of codes differ from the plain f32 version, by 1."""
+    x, params = _dpr_params(n, dc)
+    got = fused_quantize_split_ref(x, *params)
+    want = fused_quantize_ref(x, *params)
+    _assert_within_bar(got, want)
+    diff = (got.int() - want.int()).abs()
+    assert float((diff > 0).float().mean()) < 1e-3
+
+
+def test_w_split_reconstructs_w_to_the_second_bf16_word():
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy((rng.standard_normal((768, 128))
+                          * 10.0 ** rng.uniform(-6, 2, (768, 128)))
+                         .astype(np.float32))
+    w[0, :4] = torch.tensor([0.0, -0.0, 1.0, -3.5])
+    hi, lo = split_bf16(w)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, w.to(torch.bfloat16))          # round to nearest
+    resid = (w.double() - hi.double() - lo.double()).abs()
+    assert bool((resid <= 2.0 ** -16 * w.double().abs()).all())
+    assert bool((lo.double().abs() <= 2.0 ** -8 * w.double().abs()).all())
+    assert torch.equal(hi[0, :4].float(), w[0, :4]) and \
+        not bool(lo[0, :4].float().any())                  # exact: lo = 0
+
+
+@pytest.mark.parametrize("n,d,dc", [(300, 768, 128), (257, 96, 32),
+                                    (600, 320, 300)])
+def test_split_mirror_rows_do_not_depend_on_the_batch(n, d, dc):
+    docs, queries = _data(n, d)
+    pipe = CompressionPipeline([CenterNorm(), PCA(dc), CenterNorm(),
+                                Int8Quantizer()])
+    x = torch.from_numpy(docs)
+    pipe.fit(x, torch.from_numpy(queries))
+    params = p_ops.params_from_pipeline(pipe)
+    full = fused_quantize_split_ref(x, *params)
+    perm = torch.from_numpy(np.random.default_rng(2).permutation(n)[:n // 3])
+    assert torch.equal(fused_quantize_split_ref(x[perm], *params), full[perm])
+    assert torch.equal(fused_quantize_split_ref(x[n - 1:], *params),
+                       full[n - 1:])
