@@ -22,10 +22,12 @@ Phases, each printed as it runs:
    deepest probe of the seg_ivf_24x cell before it needs a compaction,
    each IVF shape timed with its sub-kernels' device ms from one traced
    call; the encode at (1M, 768) → 128 — its GB/s, share of its bytes
-   bound, W's L2 bytes and an add's 16,384 rows — and ragged widths up
-   to 384 outputs, d = 77 and rows off 16-byte boundaries, with the share
-   of codes that differ from ``fused_quantize_split_ref``, the plain
-   mirror of its split-bf16 numerics, printed as information)
+   bound, W's L2 bytes as the tile count gives them and an add's 16,384
+   rows — and ragged widths up to 384 outputs, d = 77, rows off 16-byte
+   boundaries, a scale of 1e30 and a column at the quantizer's floor
+   scale, with the share of codes that differ from
+   ``fused_quantize_split_ref``, the plain mirror of its split-bf16
+   numerics, printed as information)
    and is held against its plain PyTorch version on the same inputs:
    binary_ip, topk_blocks and 1-bit IVF exactly, the f32 sums of int8_ip
    and float/fp16/int8 IVF to atol = 1e-5·max|plain| (summation order),
@@ -100,9 +102,9 @@ from repro_torch.kernels import (_build, launch_counts,  # noqa: E402
 from repro_torch.kernels.binary_ip.kernel import binary_ip  # noqa: E402
 from repro_torch.kernels.binary_ip.ref import binary_ip_ref  # noqa: E402
 from repro_torch.kernels.fused_quantize.kernel import (  # noqa: E402
-    fused_quantize, tile_rows, w_l2_bytes)
+    K_CHUNK, PASS_D_OUT, TILE_ROWS, fused_quantize)
 from repro_torch.kernels.fused_quantize.ref import (  # noqa: E402
-    fused_quantize_ref, fused_quantize_split_ref)
+    fused_normalize_ref, fused_quantize_ref, fused_quantize_split_ref)
 from repro_torch.kernels.int8_ip.kernel import int8_ip  # noqa: E402
 from repro_torch.kernels.int8_ip.ref import int8_ip_ref  # noqa: E402
 from repro_torch.kernels.ivf_fused.kernel import (  # noqa: E402
@@ -712,9 +714,7 @@ def time_ivf(args, backend: str, dim: int, nprobe: int, k: int,
         pre += f"nprobe{nprobe}_k{k}_"
     return {f"{pre}ms": ms, f"{pre}plain_ms": plain_ms,
             f"{pre}bound_ms": b_ms, f"{pre}bound_by": b_by,
-            f"{pre}list_gb_read": list_reads / 1e9,
-            f"{pre}bound_gb": n_bytes / 1e9, f"{pre}sub_kernels_ms": subs,
-            f"{pre}distinct_lists": n_lists}
+            f"{pre}sub_kernels_ms": subs}
 
 
 def quantize_case(gen, n: int, d: int, d_out: int, n_fit: int = 65536):
@@ -751,6 +751,36 @@ def _unaligned(x):
     return view
 
 
+def check_floor_scale(gen) -> None:
+    """A column whose fitted range is under 1e-12 takes Int8Quantizer's
+    floor scale, 1e-12/255: its code is 0 or 255 by the sign of w − zero,
+    so where the plain version's w lies on zero (the row that set it) a
+    last-bit difference in w moves the code by 255.  The rule for that
+    column: codes differ only where the plain version's |w − zero| ≤
+    2^-16.  The other columns keep the bar; rows stay batch-independent."""
+    col, n, d, d_out = 5, 70000, 96, 40
+    x, params = quantize_case(gen, n, d, d_out)
+    scale = params[3].clone()
+    scale[col] = 1e-12 / 255
+    params = (*params[:3], scale, params[4])
+    got, want = fused_quantize(x, *params), fused_quantize_ref(x, *params)
+    keep = [c for c in range(d_out) if c != col]
+    ok, worst, share = codes_agree(got[:, keep], want[:, keep])
+    gap = (fused_normalize_ref(x, *params[:3])[:, col] - params[4][col]).abs()
+    edge = gap <= 2.0 ** -16
+    moved = got[:, col] != want[:, col]
+    sub = torch.randperm(n, device="cuda", generator=gen)[:131]
+    same = torch.equal(fused_quantize(x[sub], *params), got[sub])
+    print(f"[kernel] fused_quantize ({n}, {d}) -> {d_out}, column {col} at "
+          f"the floor scale: {int(moved.sum())} of its codes differ, all at "
+          f"rows with |w - zero| <= 2^-16 ({int(edge.sum())} such rows): "
+          f"{'yes' if not bool((moved & ~edge).any()) else 'NO'}; other "
+          f"columns max diff {worst}, share {share:.3g}; a permuted 131-row "
+          f"subset {'bit-identical' if same else 'DIFFERS'}")
+    if not ok or bool((moved & ~edge).any()) or not same:
+        raise AssertionError("fused_quantize breaks the floor-scale rule")
+
+
 def phase_quantize_kernel(rates) -> dict:
     """fused_quantize at the build's shapes, (1M, 768) → 128, against the
     four staged passes, plus ragged shapes and row independence."""
@@ -775,8 +805,7 @@ def phase_quantize_kernel(rates) -> dict:
           f"product in plain torch): max code diff {worst_s}, share "
           f"differing {share_s:.3g}")
     # a row's codes depend on that row alone: a permuted odd-sized subset
-    # (and a single row, on 128-row tiles) encodes to the full encode's rows,
-    # bit for bit
+    # and a single row encode to the full encode's rows, bit for bit
     perm = torch.randperm(n, device="cuda", generator=gen)[:65537]
     one = fused_quantize(x[777:778], *params)
     same = torch.equal(fused_quantize(x[perm], *params), got[perm]) and \
@@ -814,6 +843,7 @@ def phase_quantize_kernel(rates) -> dict:
         "its rows 4 bytes off 16-byte boundaries, (500, 96) with a scale of "
         "1e30): within the bar, a permuted 131-row subset of each "
         "bit-identical")
+    check_floor_scale(gen)
     mu1, w = params[0], params[1]
     n_bytes = n * d * 4 + n * d_out + (d * d_out + d + 3 * d_out) * 4
     # three bf16 products on the tensor cores; one f32 product on the CUDA
@@ -821,7 +851,6 @@ def phase_quantize_kernel(rates) -> dict:
     b_ms, b_by = bound(n_bytes, 3 * 2.0 * n * d * d_out, bf16_rate,
                        byte_rate)
     b32_ms, b32_by = bound(n_bytes, 2.0 * n * d * d_out, f32_rate, byte_rate)
-    rows = tile_rows(n, x.device)
     rec = {
         "name": "fused_quantize", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_quantize.cu",
@@ -831,22 +860,21 @@ def phase_quantize_kernel(rates) -> dict:
         "ms": cuda_ms(lambda: fused_quantize(x, *params), 10),
         "plain_ms": cuda_ms(lambda: fused_quantize_ref(x, *params), 3),
         "bound_ms": b_ms, "bound_by": b_by,
-        "bound_f32_ms": b32_ms, "bound_f32_by": b32_by,
         "library_ms": cuda_ms(lambda: torch.mm(x, w), 10),
         "library_note": "torch.mm (N, 768) x (768, 128) f32, tf32 off: the "
                         "product alone",
-        "shape": f"N={n} d={d} d_out={d_out}", "tile_rows": rows,
-        "w_l2_gb": w_l2_bytes(n, d, d_out, rows) / 1e9}
+        "shape": f"N={n} d={d} d_out={d_out}"}
     x16 = x[:ADD_ROWS].clone()
     rec["add_rows_ms"] = cuda_ms(lambda: fused_quantize(x16, *params), 20)
-    rec["gb_per_s"] = n_bytes / 1e9 / (rec["ms"] / 1e3)
+    # modelled, not measured: every tile reads Wᵀ hi and lo once a pass
+    w_l2 = -(-n // TILE_ROWS) * 4 * (-(-d // K_CHUNK) * K_CHUNK) * (
+        -(-d_out // PASS_D_OUT) * PASS_D_OUT)
     print(f"[kernel] fused_quantize: {rec['ms']:.4f} ms, "
-          f"{rec['gb_per_s']:.1f} GB/s, {b_ms / rec['ms']:.3f} of its bound "
-          f"({b_ms:.4f} ms, {b_by}; f32 on the CUDA cores {b32_ms:.4f} ms); "
-          f"W read from L2 {rec['w_l2_gb']:.3f} GB ({rows}-row tiles) "
-          f"against {n * d * 4 / 1e9:.3f} GB of x; {ADD_ROWS} rows (an add) "
-          f"{rec['add_rows_ms']:.4f} ms ({tile_rows(ADD_ROWS, x.device)}-row "
-          f"tiles)")
+          f"{n_bytes / 1e6 / rec['ms']:.1f} GB/s, {b_ms / rec['ms']:.3f} of "
+          f"its bound ({b_ms:.4f} ms, {b_by}; one f32 product on the CUDA "
+          f"cores {b32_ms:.4f} ms, {b32_by}); W's L2 reads by the tile count "
+          f"(modelled) {w_l2 / 1e9:.3f} GB against {n * d * 4 / 1e9:.3f} GB "
+          f"of x; {ADD_ROWS} rows (an add) {rec['add_rows_ms']:.4f} ms")
     del x, x16, got, want, perm, mu1, w, params
     torch.cuda.empty_cache()
     print(f"[kernel] fused_quantize: {json.dumps(rec)}")

@@ -52,7 +52,7 @@ SIGNATURES = {
     "ivf_fused_work_ints": [_i, _i, _i],
     # (x f32, mu1, w, mu2, scale, zero f32, work u8, scratch f32 | null,
     #  out u8, n, d, kp, d_out, dp, tile rows, stream)
-    "fused_quantize_launch": [_p] * 9 + [_i] * 6 + [_p],
+    "fused_quantize_launch": [_p] * 9 + [_i] * 5 + [_p],
 }
 #: entry points that return something other than a cudaError_t
 RESTYPES = {"ivf_fused_work_ints": ctypes.c_longlong}

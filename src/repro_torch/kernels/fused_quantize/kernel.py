@@ -22,26 +22,12 @@ from repro_torch.kernels.fused_quantize.ref import fused_quantize_ref
 PASS_D_OUT = 128
 #: dims a pipeline stage covers: d is zero-padded to a multiple
 K_CHUNK = 32
-#: rows a CTA's tile covers; a batch of fewer than this many rows an SM
-#: takes half-height tiles, to fill the card
+#: rows a CTA's tile covers
 TILE_ROWS = 256
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
-
-
-def tile_rows(n: int, device) -> int:
-    """The kernel's tile height for an ``n``-row batch on ``device``."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return TILE_ROWS if -(-n // TILE_ROWS) >= sms else TILE_ROWS // 2
-
-
-def w_l2_bytes(n: int, d: int, d_out: int, rows: int) -> int:
-    """Bytes of W_hiᵀ and W_loᵀ the kernel reads from L2 at (n, d) → d_out:
-    every tile reads every pass's chunks once."""
-    kp, dp = _round_up(d, K_CHUNK), _round_up(d_out, PASS_D_OUT)
-    return -(-n // rows) * dp * kp * 2 * 2
 
 
 def fused_quantize(x: torch.Tensor, mu1: torch.Tensor, w: torch.Tensor,
@@ -84,8 +70,8 @@ def fused_quantize(x: torch.Tensor, mu1: torch.Tensor, w: torch.Tensor,
             xs.data_ptr(), mu1.data_ptr(), w.data_ptr(), mu2.data_ptr(),
             scale.data_ptr(), zero.data_ptr(), work.data_ptr(),
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            n, d, kp, d_out, dp, tile_rows(n, dev),
-            _build.stream_handle(xs)), "fused_quantize")
+            n, d, kp, d_out, dp, _build.stream_handle(xs)),
+            "fused_quantize")
     fused_quantize.launches += 1
     return out
 

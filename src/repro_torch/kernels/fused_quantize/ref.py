@@ -18,16 +18,21 @@ from __future__ import annotations
 import torch
 
 
+def fused_normalize_ref(x: torch.Tensor, mu1: torch.Tensor, w: torch.Tensor,
+                        mu2: torch.Tensor) -> torch.Tensor:
+    """(N, d) float → the (N, d′) f32 rows that :func:`fused_quantize_ref`
+    encodes: center+normalize, the product, center+normalize."""
+    y = x.float() - mu1
+    y = y / torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True) + 1e-24)
+    zc = y @ w - mu2
+    return zc / torch.sqrt(torch.sum(zc * zc, dim=-1, keepdim=True) + 1e-24)
+
+
 def fused_quantize_ref(x: torch.Tensor, mu1: torch.Tensor, w: torch.Tensor,
                        mu2: torch.Tensor, scale: torch.Tensor,
                        zero: torch.Tensor) -> torch.Tensor:
     """(N, d) float → (N, d′) uint8 codes."""
-    x = x.float()
-    y = x - mu1
-    y = y / torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True) + 1e-24)
-    z = y @ w
-    zc = z - mu2
-    zc = zc / torch.sqrt(torch.sum(zc * zc, dim=-1, keepdim=True) + 1e-24)
+    zc = fused_normalize_ref(x, mu1, w, mu2)
     q = torch.round((zc - zero) / scale)
     return torch.clamp(q, 0.0, 255.0).to(torch.uint8)
 

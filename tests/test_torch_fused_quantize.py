@@ -36,7 +36,8 @@ from repro_torch.kernels.fused_quantize import ops as p_ops  # noqa: E402
 from repro_torch.kernels.fused_quantize.kernel import (  # noqa: E402
     fused_quantize)
 from repro_torch.kernels.fused_quantize.ref import (  # noqa: E402
-    fused_quantize_ref, fused_quantize_split_ref, split_bf16)
+    fused_normalize_ref, fused_quantize_ref, fused_quantize_split_ref,
+    split_bf16)
 from repro_torch.retrieval import scorers as p_scorers  # noqa: E402
 
 #: (n, d, d′, Pallas block_n): repro's two cases and the paper's widths
@@ -286,3 +287,33 @@ def test_split_mirror_rows_do_not_depend_on_the_batch(n, d, dc):
     assert torch.equal(fused_quantize_split_ref(x[perm], *params), full[perm])
     assert torch.equal(fused_quantize_split_ref(x[n - 1:], *params),
                        full[n - 1:])
+
+
+@pytest.mark.parametrize("n,d,dc", [(500, 96, 40), (4096, 96, 40)])
+def test_split_mirror_keeps_the_floor_scale_rule(n, d, dc):
+    """A column at Int8Quantizer's floor scale (1e-12/255) codes the sign
+    of w − zero, so a last-bit difference in w at the row that set zero
+    moves its code by 255.  The rule ``chip_smoke.py`` holds the kernel
+    to: in that column codes differ only where the plain version's
+    |w − zero| ≤ 2^-16; the other columns keep the bar.  The plain
+    version's codes are its own normalized rows, encoded."""
+    docs, queries = _data(n, d)
+    pipe = CompressionPipeline([CenterNorm(), PCA(dc), CenterNorm(),
+                                Int8Quantizer()])
+    x = torch.from_numpy(docs)
+    pipe.fit(x, torch.from_numpy(queries))
+    mu1, w, mu2, scale, zero = p_ops.params_from_pipeline(pipe)
+    scale = scale.clone()
+    scale[5] = 1e-12 / 255
+    want = fused_quantize_ref(x, mu1, w, mu2, scale, zero)
+    rows = fused_normalize_ref(x, mu1, w, mu2)
+    torch.testing.assert_close(rows.norm(dim=1), torch.ones(n))
+    assert torch.equal(
+        torch.clamp(torch.round((rows - zero) / scale), 0, 255).to(
+            torch.uint8), want)
+    got = fused_quantize_split_ref(x, mu1, w, mu2, scale, zero)
+    keep = [c for c in range(dc) if c != 5]
+    _assert_within_bar(got[:, keep], want[:, keep])
+    assert set(want[:, 5].tolist()) <= {0, 255}
+    edge = (rows[:, 5] - zero[5]).abs() <= 2.0 ** -16
+    assert not bool(((got[:, 5] != want[:, 5]) & ~edge).any())
