@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's exact, IVF and mutable paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's exact, IVF, tiered, served and mutable paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-docs 1000000] [--n-queries 2048] [--seed 0]
 
@@ -61,7 +62,23 @@ Phases, each printed as it runs:
    of 256 at nprobe 16, 64 and 256 (qps, p50/p99, recall@10 against
    nprobe = nlist, R-precision's share of float), with the launch counts
    set to 0 before and read after; one batch per index is traced.
-6. mutable — a second KB of 1M + 131,072 docs: the first 1M are the
+6. tiered and served — the IVF phase's 24x and 100x indexes saved as
+   chunked v3 artifacts under build/tiered (gitignored, removed at the
+   end) and loaded at hot-tier budgets 0, enc/8, enc/2, enc and "all"
+   (enc: the encoded bytes); 4 batches of 256 queries searched at nprobe
+   16 and 64, ids and score bits held equal to the resident index's fused
+   search; per budget p50/p99, qps, fused launches a batch, host ms
+   assembling blocks (store gets, packing), the store's counters and a
+   traced batch (device ms).  Repeat reads come from the page cache.
+   Small float and fp16 IVF indexes (32,768 docs) are held to the same
+   bits tiered at budget 0, at nprobe 7 and past the probed pool.  Then a
+   SegmentedIndex over the tiered 24x index at enc/4 (16,384 adds, 100
+   main deletes) against the same operations on a resident main, both
+   folded by ``compact(out_path=)`` (files byte-identical, tiered reload
+   equal to resident), and a RetrievalService with the artifact
+   registered at enc/4 and then promoted to "all" (answers equal direct
+   search bit for bit; p50 at the front door; tier gauges).
+7. mutable — a second KB of 1M + 131,072 docs: the first 1M are the
    main, the rest arrive as 8 adds of 16,384.  ``seg_24x_post`` (the
    paper's pre+post-normalized 24x recipe, encoded by fused_quantize on
    the build and every add; 100 main and 100 delta deletes) and
@@ -74,7 +91,7 @@ Phases, each printed as it runs:
    ids equal), through ``compact()`` and a v2 save/load; the fused encode
    against the staged plain encode on the card; R-precision's share of
    float; one batch per index traced.
-7. the last two lines: ``{"kernels": [...]}`` and the device line.
+8. the last two lines: ``{"kernels": [...]}`` and the device line.
 
 Any failure raises before the last line, and the exit code is non-zero.
 """
@@ -133,6 +150,13 @@ GROWTH_KS = (16_384, 10 + 282_768)
 TOPK_DEEP = 1_010
 #: the mutable phase: live adds on top of the main
 N_ADDS, ADD_ROWS = 8, 16_384
+#: the tiered phase: probe widths and batches searched at every hot-tier
+#: budget, and the segmented main over the tiered 24x index (one add, main
+#: deletes, batches)
+TIERED_NPROBES, TIERED_BATCHES = (16, 64), 4
+#: the float and fp16 tiered check's docs
+TIERED_SMALL_DOCS = 32_768
+SEG_ADDS, SEG_DEAD, SEG_BATCHES = 16_384, 100, 2
 
 #: name fragment → (bytes/s, bf16 FLOP/s, int8 OP/s, f32 FLOP/s), dense
 #: rates from NVIDIA's data sheets; the SXM part is the default
@@ -1064,9 +1088,9 @@ def phase_main_path(args, kb):
     return counts, indexes, rp_float
 
 
-def phase_ivf(args, kb, exact, rp_float) -> dict[str, int]:
+def phase_ivf(args, kb, exact, rp_float):
     """IVF search at the paper's two widths; returns the launch counts of
-    the timed run."""
+    the timed run and the loaded indexes."""
     from repro_torch.retrieval import (IndexSpec, build_index, load_index,
                                        r_precision_from_ids, recall_at_k)
 
@@ -1176,6 +1200,257 @@ def phase_ivf(args, kb, exact, rp_float) -> dict[str, int]:
     counts = launch_counts()
     print(f"[ivf] launches over the IVF path: {counts}")
     profile_batches(indexes, queries, nprobe=NPROBE, **search_kw)
+    return counts, indexes
+
+
+class _HostClock:
+    """Host seconds inside a tiered index's block assembly, by step: its
+    store fetches and its packing into the staging buffer (instance
+    wrappers; the index's code is unchanged)."""
+
+    def __init__(self, index):
+        self.seconds = {"_fetch_block": 0.0, "_assemble_block": 0.0}
+        for name in self.seconds:
+            setattr(index, name, self._timed(name, getattr(index, name)))
+
+    def _timed(self, name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+        return call
+
+
+def _same_bits(got, want) -> tuple[bool, bool]:
+    (gv, gi), (wv, wi) = got, want
+    return (torch.equal(gi, wi),
+            torch.equal(gv.view(torch.int32), wv.view(torch.int32)))
+
+
+def check_tiered_float_backends(kb, root: str) -> None:
+    """The per-block fused route for the float and fp16 rows too: small IVF
+    indexes over the KB's first docs, tiered at budget 0 against resident,
+    bit for bit, at an odd nprobe (a phantom pad slot) and k past the
+    probed pool (the (−inf, −1) fill)."""
+    from repro_torch.retrieval import (IndexSpec, build_index, load_index,
+                                       save_index)
+
+    docs, q = kb.docs[:TIERED_SMALL_DOCS], kb.queries[:BATCH]
+    for name, spec in (("float", IndexSpec(method="dense", ivf=(64, 7))),
+                       ("fp16", IndexSpec(method="fp16", post=False,
+                                          ivf=(64, 7)))):
+        path = os.path.join(root, f"small_{name}.v3")
+        built = build_index(spec, docs, q, device="cuda")
+        save_index(built, path, chunked=True)
+        tiered = load_index(path, resident=0, device="cuda")
+        same = [_same_bits(tiered.search(q, k, nprobe=7, query_chunk=BATCH),
+                           built.search(q, k, nprobe=7, query_chunk=BATCH))
+                for k in (K, 3 * TIERED_SMALL_DOCS // 64 * 7)]
+        print(f"[tiered] {name} IVF ({TIERED_SMALL_DOCS} docs, nlist 64, "
+              f"nprobe 7) at budget 0 vs resident, k = 10 and past the "
+              f"probed pool: {same}")
+        if not all(a and b for a, b in same):
+            raise AssertionError(f"{name}: tiered search differs from the "
+                                 "resident index")
+
+
+def phase_tiered(args, kb, ivf_indexes) -> dict[str, int]:
+    """Tiered and served IVF: the IVF phase's 24x and 100x indexes saved as
+    chunked v3 artifacts, loaded at several hot-tier budgets and searched
+    (the per-block fused route), a segmented main over the tiered 24x
+    index, chunked compaction, and the serving front door.  Returns the
+    launch counts of the run."""
+    import filecmp
+    import shutil
+
+    from repro_torch.retrieval import (SegmentedIndex, load_index,
+                                       load_index_meta, save_index)
+    from repro_torch.serve import RetrievalService
+
+    queries = kb.queries[:TIERED_BATCHES * BATCH]
+    kw = dict(query_chunk=BATCH)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "tiered")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    print("[tiered] the artifacts are written under build/tiered and read "
+          "back at once: repeat reads of a chunk come from the page cache, "
+          "not the disk (no cache is dropped), so a miss costs a copy out "
+          "of the map and its CRC on the first read, not a disk read; the "
+          "budgets bound the hot tier's materialised copies")
+    reset_launch_counts()
+    paths, refs = {}, {}
+    for name, index in ivf_indexes.items():
+        path = paths[name] = os.path.join(root, f"{name}.v3")
+        t0 = time.perf_counter()
+        save_index(index, path, chunked=True)
+        save_s = time.perf_counter() - t0
+        enc = load_index_meta(path)["encoded_nbytes"]
+        print(f"[tiered] {name}: save_index(chunked=True) {save_s:.2f} s, "
+              f"{enc} encoded bytes in {index.nlist} lists")
+        ref = refs[name] = {
+            nprobe: _search_batches(index, queries, K, nprobe=nprobe, **kw)
+            for nprobe in TIERED_NPROBES}
+        for label, budget in (("0", 0), ("enc/8", enc // 8),
+                              ("enc/2", enc // 2), ("enc", enc),
+                              ("all", "all")):
+            t0 = time.perf_counter()
+            tiered = load_index(path, resident=budget, device="cuda")
+            load_s = time.perf_counter() - t0
+            if (tiered.store is None) != (budget == "all"):
+                raise AssertionError(f"{name} resident={label}: wrong tier")
+            clock = _HostClock(tiered) if tiered.store is not None else None
+            for nprobe in TIERED_NPROBES:
+                before = launch_counts()["fused_ivf_topk"]
+                host0 = dict(clock.seconds) if clock else {}
+                vals, ids, secs = _search_batches(tiered, queries, K,
+                                                  nprobe=nprobe, **kw)
+                launches = launch_counts()["fused_ivf_topk"] - before
+                same_ids, same_bits = _same_bits((vals, ids),
+                                                 ref[nprobe][:2])
+                fetch, pack = ((clock.seconds[n] - host0[n]) * 1e3
+                               / TIERED_BATCHES for n in host0) \
+                    if clock else (0.0, 0.0)
+                print(f"[tiered] {name} resident={label} nprobe {nprobe}: "
+                      f"{latency(secs, queries.shape[0])}; fused launches "
+                      f"a batch {launches / TIERED_BATCHES:g}; host ms a "
+                      f"batch assembling blocks {fetch + pack:.3f} (store "
+                      f"gets {fetch:.3f}, packing {pack:.3f}); vs the "
+                      f"resident fused search ids "
+                      f"{'equal' if same_ids else 'DIFFER'}, score bits "
+                      f"{'equal' if same_bits else 'DIFFER'}")
+                if not (same_ids and same_bits):
+                    raise AssertionError(f"{name} resident={label} nprobe "
+                                         f"{nprobe}: tiered search differs "
+                                         "from the resident index")
+            stats = (json.dumps({k: tiered.store.stats()[k] for k in (
+                "hits", "misses", "evictions", "bytes_resident",
+                "budget_bytes", "bytes_read")})
+                if tiered.store is not None else "no store (resident)")
+            print(f"[tiered] {name} resident={label}: load {load_s:.2f} s; "
+                  f"store {stats}")
+            profile_batches({f"{name} resident={label}": tiered}, queries,
+                            nprobe=NPROBE, **kw)
+            del tiered
+            torch.cuda.empty_cache()
+
+    check_tiered_float_backends(kb, root)
+
+    # -- a segmented main over the tiered 24x index ----------------------
+    name = "ivf_int8_24x"
+    path = paths[name]
+    enc = load_index_meta(path)["encoded_nbytes"]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 17)
+    n_main = ivf_indexes[name]._n_docs
+    pick = torch.randint(0, n_main, (SEG_ADDS,), generator=gen,
+                         device="cuda")
+    adds = kb.docs[pick] + 0.05 * torch.randn(
+        (SEG_ADDS, kb.docs.shape[1]), generator=gen, device="cuda")
+    segs = {"resident": SegmentedIndex(load_index(path, resident="all",
+                                                  device="cuda")),
+            "tiered": SegmentedIndex(load_index(path, resident=enc // 4,
+                                                device="cuda"))}
+    for seg in segs.values():
+        seg.add(adds)
+    queries = queries[:SEG_BATCHES * BATCH]
+    first = _search_batches(segs["resident"], queries, K, nprobe=NPROBE)[1]
+    pool = np.unique(first.cpu().numpy().ravel())
+    dead = np.random.default_rng(args.seed + 19).choice(
+        pool[pool < n_main], SEG_DEAD, replace=False).tolist()
+    for seg in segs.values():
+        if seg.delete(dead) != SEG_DEAD:
+            raise AssertionError("segmented tiered main: deletes not taken")
+    got = {}
+    for tag, seg in segs.items():
+        vals, ids, secs = _search_batches(seg, queries, K, nprobe=NPROBE)
+        got[tag] = (vals, ids)
+        print(f"[tiered] seg over {name} ({tag} main): {SEG_ADDS} adds, "
+              f"{SEG_DEAD} main deletes, nprobe {NPROBE}, main probed "
+              f"k + #dead = {K + SEG_DEAD} deep: "
+              f"{latency(secs, queries.shape[0])}")
+    same_ids, same_bits = _same_bits(got["tiered"], got["resident"])
+    st = segs["tiered"].main.store.stats()
+    print(f"[tiered] seg over {name}: tiered main at enc/4 vs resident main "
+          f"ids {'equal' if same_ids else 'DIFFER'}, score bits "
+          f"{'equal' if same_bits else 'DIFFER'}; pinned lists "
+          f"{st['pinned_lists']}, store {json.dumps(st)}")
+    if not same_ids:
+        raise AssertionError("segmented tiered main ranks differently from "
+                             "the resident main")
+    comps = {}
+    for tag, seg in segs.items():
+        out = os.path.join(root, f"seg_{tag}.v3")
+        t0 = time.perf_counter()
+        # the tiered main's fold served tiered, the resident main's resident
+        comps[tag] = seg.compact(
+            out_path=out, resident=enc // 4 if tag == "tiered" else "all")
+        print(f"[tiered] seg ({tag} main) compact(out_path=) to a v3 "
+              f"artifact, reloaded {'at enc/4' if tag == 'tiered' else 'resident'}: "
+              f"{time.perf_counter() - t0:.2f} s")
+    same_files = all(filecmp.cmp(os.path.join(root, "seg_tiered.v3", f),
+                                 os.path.join(root, "seg_resident.v3", f),
+                                 shallow=False)
+                     for f in ("chunks.bin", "manifest.json"))
+    cv, ci, _ = _search_batches(comps["tiered"], queries, K + 1,
+                                nprobe=NPROBE)
+    rv, ri, _ = _search_batches(comps["resident"], queries, K + 1,
+                                nprobe=NPROBE)
+    c_ids, c_bits = _same_bits((cv, ci), (rv, ri))
+    ok, err = ranking_agrees(got["tiered"], (rv[:, :K], ri[:, :K]),
+                             exact=False, cut=rv[:, K])
+    print(f"[tiered] compacted artifacts of the tiered and the resident main "
+          f"{'byte-identical' if same_files else 'DIFFER'}; the fold at enc/4 "
+          f"vs resident: ids {'equal' if c_ids else 'DIFFER'}, score bits "
+          f"{'equal' if c_bits else 'DIFFER'}; vs before the fold "
+          f"{'agrees' if ok else 'DIFFERS'} (max_abs_err {err:.3g}; delta "
+          f"rows were scored by int8_ip, now by the fused kernel)")
+    if not (same_files and c_ids and c_bits and ok):
+        raise AssertionError("compact(out_path=) of the tiered main differs "
+                             "from the resident main's")
+    del segs, comps, adds
+    torch.cuda.empty_cache()
+
+    # -- the front door: direct search is the resident fused search ------
+    queries = kb.queries[:TIERED_BATCHES * BATCH]
+    direct_v, direct_i, _ = refs[name][NPROBE]
+    with RetrievalService(max_batch=BATCH) as svc:
+        svc.register("kb", artifact=path, resident_budget=enc // 4,
+                     device="cuda")
+        for version, budget in ((1, enc // 4), (2, "all")):
+            lat, same = [], True
+            for s in range(0, queries.shape[0], BATCH):
+                q = queries[s: s + BATCH]
+                res = svc.query(q.cpu().numpy(), index="kb").result(300)
+                lat.append(res.latency_s)
+                dv, di = direct_v[s: s + BATCH], direct_i[s: s + BATCH]
+                same &= (np.array_equal(res.ids, di.cpu().numpy()) and
+                         np.array_equal(res.scores.view(np.int32),
+                                        dv.view(torch.int32).cpu().numpy()))
+            row = svc.stats()["indexes"]["kb"]["versions"][version]
+            ms = sorted(x * 1e3 for x in lat)
+            print(f"[tiered] front door v{version} resident={budget}: "
+                  f"{len(lat)} queries of {BATCH} rows, p50 "
+                  f"{statistics.median(ms):.3f} ms p99 {ms[-1]:.3f} ms; vs "
+                  f"direct search {'bit-identical' if same else 'DIFFERS'}; "
+                  f"tier gauges "
+                  f"{json.dumps(row['tier']) if 'tier' in row else 'none'}")
+            if not same:
+                raise AssertionError("the front door's answer differs from "
+                                     "direct search")
+            if (version == 1) != ("tier" in row):
+                raise AssertionError("tier gauges wrong for the version")
+            if version == 1:
+                svc.stage("kb", artifact=path, resident_budget="all",
+                          device="cuda")
+                svc.promote("kb")
+    counts = launch_counts()
+    print(f"[tiered] launches over the tiered path: {counts}")
+    if counts["fused_ivf_topk"] < 1:
+        raise AssertionError("fused_ivf_topk never launched on the tiered "
+                             "path")
+    shutil.rmtree(root, ignore_errors=True)
     return counts
 
 
@@ -1491,14 +1766,20 @@ def main(argv=None) -> int:
         lap("KB wait")
         counts, exact, rp_float = phase_main_path(args, kb)
         lap("main path")
-        ivf_counts = phase_ivf(args, kb, exact, rp_float)
+        ivf_counts, ivf_indexes = phase_ivf(args, kb, exact, rp_float)
         lap("IVF")
-        del kb, exact
+        del exact
+        torch.cuda.empty_cache()
+        tiered_counts = phase_tiered(args, kb, ivf_indexes)
+        lap("tiered")
+        del kb, ivf_indexes
         torch.cuda.empty_cache()
         mutable_counts = phase_mutable(args, kb_on_card(mutable_kb,
                                                         "mutable", args))
         lap("mutable")
-    # each kernel's launches on the path that drives it
+    # each kernel's launches on the path that drives it (the IVF kernel's
+    # on the resident and the tiered IVF paths together)
+    ivf_counts = {n: ivf_counts[n] + tiered_counts[n] for n in ivf_counts}
     path_counts = {"fused_ivf_topk": ivf_counts,
                    "fused_quantize": mutable_counts}
     for rec in kernels:

@@ -11,18 +11,21 @@ Counterpart of ``repro.retrieval.api`` for exact and IVF search:
   for ``spec.mutable``.  Sharded specs raise ``NotImplementedError``
   naming the slice of the port that adds them.
 * :func:`save_index` / :func:`load_index` / :func:`load_index_meta` — the
-  ``.npz`` artifacts, read and written with numpy alone: ``__meta__`` is a
-  0-d JSON string (no pickle), ``pipeline:{i}:{key}`` arrays hold each
-  stage's state, ``storage`` the encoded documents (1-bit words as
+  artifacts, read and written with numpy alone.  An ``.npz``: ``__meta__``
+  is a 0-d JSON string (no pickle), ``pipeline:{i}:{key}`` arrays hold
+  each stage's state, ``storage`` the encoded documents (1-bit words as
   uint32), and an IVF index adds ``centroids``, ``lists`` and ``labels``
   (version 1).  A :class:`SegmentedIndex` adds its mutable layer —
   ``main_gids``, ``tombstones``, ``seg:{i}:storage|gids|labels`` and
   ``drift:sum``, with the allocator and drift scalars under
-  ``__meta__["segmented"]`` (version 2).  ``repro.retrieval.api.
-  load_index`` reads what :func:`save_index` writes, and
-  :func:`load_index` reads ``repro``'s — the one way fitted state crosses
-  between the packages.  Chunked (v3) directories wait for the storage
-  slice.
+  ``__meta__["segmented"]`` (version 2).  ``save_index(..., chunked=True)``
+  writes an IVF index (plain or segmented) as a chunked v3 directory
+  (:mod:`repro_torch.storage.format`: per-list chunks, the same meta in
+  ``manifest.json``, the rest in ``aux.npz``), which ``load_index`` serves
+  fully resident or from a byte-budgeted hot tier (``resident=``).
+  ``repro.retrieval.api.load_index`` reads what :func:`save_index`
+  writes, and :func:`load_index` reads ``repro``'s — the one way fitted
+  state crosses between the packages.
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ import dataclasses
 import hashlib
 import json
 import os
-import zipfile
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -42,17 +44,28 @@ from repro_torch.core.registry import (build_method, build_pipeline_from_spec,
                                        pipeline_spec)
 from repro_torch.retrieval.index import (CompressedIndex, DenseIndex,
                                          storage_tensor)
-from repro_torch.retrieval.ivf import IVFFlatIndex, IVFIndex
+from repro_torch.retrieval.ivf import (IVFFlatIndex, IVFIndex,
+                                       artifact_rows, build_padded_lists,
+                                       port_rows)
 from repro_torch.retrieval.scorers import OneBitScorer
 from repro_torch.retrieval.segments import SegmentedIndex, _Segment
-from repro_torch.utils import (SHARD_SLICE, STORAGE_SLICE, DeviceLike,
-                               backend_to_repro, check_backend,
-                               resolve_device)
+from repro_torch.storage.format import (ArtifactError, ChunkReader,
+                                        ChunkWriter, is_chunked_artifact,
+                                        npz_member_nbytes)
+from repro_torch.storage.store import MmapStore
+from repro_torch.utils import (SHARD_SLICE, DeviceLike, backend_to_repro,
+                               check_backend, resolve_device)
 
 ARTIFACT_FORMAT = "repro-index"
-#: immutable indexes write version 1, a SegmentedIndex version 2
-ARTIFACT_VERSION = 1
+#: the newest version read: an immutable .npz is version 1, a
+#: SegmentedIndex's .npz version 2, a chunked directory version 3
+ARTIFACT_VERSION = 3
+NPZ_VERSION = 1
 SEGMENTED_NPZ_VERSION = 2
+
+#: ``resident="auto"`` loads fully resident up to this encoded size, and
+#: tiers (MmapStore at this budget) beyond it
+AUTO_RESIDENT_BYTES = 1 << 30
 
 #: artifact kinds ``repro`` writes and the port cannot load yet
 _LATER_KINDS = {"ShardedCompressedIndex": SHARD_SLICE,
@@ -282,50 +295,145 @@ def _storage_numpy(storage, scorer) -> np.ndarray:
     return arr.view(np.uint32) if isinstance(scorer, OneBitScorer) else arr
 
 
-def save_index(index, path: str) -> None:
+def save_index(index, path: str, *, chunked: bool = False) -> None:
     """Write the ``.npz`` artifact (spec + state) — version 1 for an
     immutable index, version 2 for a :class:`SegmentedIndex` (its delta
     segments, tombstones, allocator and drift statistics too), readable by
-    ``repro.retrieval.api.load_index`` and by :func:`load_index`."""
+    ``repro.retrieval.api.load_index`` and by :func:`load_index`.
+
+    ``chunked=True`` writes the v3 tiered layout instead: a directory with
+    per-inverted-list chunks streamed to disk list by list, which
+    :func:`load_index` can serve with a byte-budgeted hot tier
+    (``resident=``).  IVF indexes only (plain or under a
+    :class:`SegmentedIndex`); a store-backed index *must* be saved chunked
+    — it has no resident storage to pack into an ``.npz``.
+    """
     if not isinstance(index, (SegmentedIndex, DenseIndex, CompressedIndex,
                               IVFIndex)):
         raise TypeError(f"don't know how to save {type(index).__name__}")
+    if chunked:
+        return _save_index_chunked(index, path)
+    main = index.main if isinstance(index, SegmentedIndex) else index
+    if getattr(main, "store", None) is not None:
+        raise ValueError(
+            "store-backed (tiered) index cannot be packed into a .npz — "
+            "save_index(..., chunked=True) streams it to a v3 artifact, "
+            "or reload with resident='all' first")
     arrays: dict[str, np.ndarray] = {}
     meta: dict[str, Any] = {
-        "format": ARTIFACT_FORMAT, "format_version": ARTIFACT_VERSION,
+        "format": ARTIFACT_FORMAT, "format_version": NPZ_VERSION,
         "spec": index.spec.to_dict() if index.spec is not None else None,
     }
     if isinstance(index, SegmentedIndex):
         _collect_index(index.main, arrays, meta)
-        meta["main_kind"] = meta["kind"]
-        meta["kind"] = "SegmentedIndex"
+        _collect_mutable(index, arrays, meta)
         meta["format_version"] = SEGMENTED_NPZ_VERSION
-        sd = index.state_dict()
-        arrays["main_gids"] = np.asarray(sd["main_gids"], np.int32)
-        arrays["tombstones"] = np.asarray(sd["tombstones"], np.int64)
-        for i, seg in enumerate(sd["segments"]):
-            arrays[f"seg:{i}:storage"] = _storage_numpy(seg["storage"],
-                                                        index.scorer)
-            arrays[f"seg:{i}:gids"] = np.asarray(seg["gids"], np.int32)
-            if seg["labels"] is not None:
-                arrays[f"seg:{i}:labels"] = np.asarray(seg["labels"],
-                                                       np.int32)
-        drift = sd["drift"]
-        if drift["sum"] is not None:
-            arrays["drift:sum"] = _numpy(drift["sum"])
-        meta["segmented"] = {
-            "next_gid": int(sd["next_gid"]),
-            "n_segments": len(sd["segments"]),
-            "n_live": len(index),
-            "drift": {"n_added": int(drift["n_added"]),
-                      "norm_sum": float(drift["norm_sum"])},
-            "drift_threshold": index.drift_threshold,
-            "max_delta_fraction": index.max_delta_fraction,
-        }
     else:
         _collect_index(index, arrays, meta)
     arrays["__meta__"] = np.asarray(json.dumps(meta, sort_keys=True))
     np.savez(path, **arrays)
+
+
+def _collect_mutable(seg: SegmentedIndex, arrays: dict, meta: dict) -> None:
+    """A SegmentedIndex's mutable layer — segments, tombstones, allocator,
+    drift — into ``arrays``/``meta`` (a v2 ``.npz`` or a v3 ``aux.npz``
+    alike), after its main's own entries."""
+    meta["main_kind"] = meta["kind"]
+    meta["kind"] = "SegmentedIndex"
+    st = seg._state
+    arrays["main_gids"] = np.asarray(seg._main_gids, np.int32)
+    arrays["tombstones"] = np.flatnonzero(st.tomb).astype(np.int64)
+    for i, s in enumerate(st.segments):
+        arrays[f"seg:{i}:storage"] = _storage_numpy(s.storage, seg.scorer)
+        arrays[f"seg:{i}:gids"] = np.asarray(s.gids, np.int32)
+        if s.labels is not None:
+            arrays[f"seg:{i}:labels"] = np.asarray(s.labels, np.int32)
+    drift = seg.drift.state_dict()
+    if drift["sum"] is not None:
+        arrays["drift:sum"] = _numpy(drift["sum"])
+    meta["segmented"] = {
+        "next_gid": int(st.next_gid),
+        "n_segments": len(st.segments),
+        "n_live": len(seg),
+        "drift": {"n_added": int(drift["n_added"]),
+                  "norm_sum": float(drift["norm_sum"])},
+        "drift_threshold": seg.drift_threshold,
+        "max_delta_fraction": seg.max_delta_fraction,
+    }
+
+
+def _chunked_header(ivf: IVFIndex, seg: Optional[SegmentedIndex],
+                    spec) -> tuple[dict, dict]:
+    """(meta, aux arrays) of a v3 artifact — the header fields a v2
+    ``.npz`` writes, as ``repro``'s ``_chunked_header`` lays them out."""
+    aux: dict[str, np.ndarray] = {}
+    meta: dict[str, Any] = {
+        "format": ARTIFACT_FORMAT, "format_version": ARTIFACT_VERSION,
+        "spec": spec.to_dict() if spec is not None else None,
+        "kind": type(ivf).__name__,
+    }
+    meta["stages"] = pipeline_spec(ivf.pipeline)
+    meta["stage_fitted"] = _flatten_pipeline_sd(ivf.pipeline.state_dict(),
+                                                aux)
+    aux["centroids"] = _numpy(ivf.centroids)
+    meta["index"] = {
+        "sim": ivf.sim, "backend": backend_to_repro(ivf.backend),
+        "n_docs": int(ivf._n_docs), "dim": int(ivf._dim),
+        "version": int(ivf._version),
+        "scorer_extra": ivf.scorer.extra_state(),
+        "nlist": int(ivf.nlist),
+        "nlist_requested": int(ivf._nlist_requested),
+        "nprobe": int(ivf.nprobe),
+        "residual": bool(ivf.residual),
+        "kmeans_init": str(ivf.kmeans_init),
+        "balanced": bool(ivf.balanced),
+        "kmeans_iters": int(ivf.kmeans_iters),
+    }
+    if seg is not None:
+        _collect_mutable(seg, aux, meta)
+    return meta, aux
+
+
+def _write_chunked(path: str, meta: dict, aux: dict, rows_iter, *,
+                   storage_dtype, storage_width: int, n_lists: int) -> dict:
+    """Stream ``(rows, ids)`` per list into a v3 artifact directory; rows
+    are written in the artifact's dtype (1-bit words as uint32)."""
+    writer = ChunkWriter(path, storage_dtype=storage_dtype,
+                         storage_width=storage_width)
+    n = 0
+    for rows, ids in rows_iter:
+        writer.write_list(artifact_rows(np.asarray(rows)), ids)
+        n += 1
+    if n != n_lists:
+        raise ValueError(f"chunk stream yielded {n} lists, expected "
+                         f"{n_lists}")
+    return writer.finish(meta, aux)
+
+
+def _rows_layout(ivf: IVFIndex) -> tuple[np.dtype, int]:
+    """The artifact dtype and width of an IVF index's rows."""
+    if ivf.store is not None:
+        return ivf.store.storage_dtype, ivf.store.storage_width
+    return (artifact_rows(_numpy(ivf.storage[:0])).dtype,
+            int(ivf.storage.shape[1]))
+
+
+def _save_index_chunked(index, path: str) -> None:
+    seg = index if isinstance(index, SegmentedIndex) else None
+    ivf = seg.main if seg is not None else index
+    if not isinstance(ivf, IVFIndex):
+        raise TypeError(
+            "chunked (v3) artifacts lay out per-IVF-list storage — "
+            f"{type(index).__name__} has no inverted lists; save it "
+            "without chunked=True")
+    if ivf.centroids is None or (ivf.storage is None and ivf.store is None):
+        raise ValueError("cannot save an empty index")
+    meta, aux = _chunked_header(ivf, seg, index.spec)
+    dtype, width = _rows_layout(ivf)
+    _write_chunked(path, meta, aux,
+                   ((rows, ids) for _, rows, ids in ivf.iter_lists()),
+                   storage_dtype=dtype, storage_width=width,
+                   n_lists=ivf.nlist)
 
 
 def _collect_index(index, arrays: dict, meta: dict) -> None:
@@ -368,43 +476,69 @@ def _collect_index(index, arrays: dict, meta: dict) -> None:
             })
 
 
+def _validate_header(meta: dict, path: str) -> None:
+    if meta.get("format") != ARTIFACT_FORMAT:
+        raise ValueError(f"{path}: unknown artifact format "
+                         f"{meta.get('format')!r}")
+    if meta.get("format_version", 0) > ARTIFACT_VERSION:
+        raise ValueError(
+            f"{path}: artifact version {meta['format_version']} is newer "
+            f"than this build ({ARTIFACT_VERSION})")
+
+
 def _parse_meta(data, path: str) -> dict:
     """Validate and decode the artifact's JSON header."""
     if "__meta__" not in data.files:
         raise ValueError(f"{path} is not a {ARTIFACT_FORMAT} artifact "
                          "(no __meta__ entry)")
     meta = json.loads(data["__meta__"].item())
-    if meta.get("format") != ARTIFACT_FORMAT:
-        raise ValueError(f"{path}: unknown artifact format "
-                         f"{meta.get('format')!r}")
-    version = meta.get("format_version", 0)
-    if version not in (ARTIFACT_VERSION, SEGMENTED_NPZ_VERSION):
-        raise NotImplementedError(
-            f"{path}: artifact version {version} is not readable yet — the "
-            f"port reads versions {ARTIFACT_VERSION} and "
-            f"{SEGMENTED_NPZ_VERSION} (.npz); chunked (v3) artifacts wait "
-            f"for {STORAGE_SLICE}")
+    _validate_header(meta, path)
     return meta
 
 
-def _check_npz(path: str) -> None:
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: chunked (v3) artifact directories wait for "
-            f"{STORAGE_SLICE}")
+def _resolve_resident(resident: Union[str, int],
+                      encoded_nbytes: int) -> Optional[int]:
+    """``None`` = load fully resident; an int = MmapStore byte budget."""
+    if isinstance(resident, str):
+        if resident == "all":
+            return None
+        if resident == "auto":
+            return (None if encoded_nbytes <= AUTO_RESIDENT_BYTES
+                    else AUTO_RESIDENT_BYTES)
+        raise ValueError(f"resident must be 'auto', 'all', or a byte "
+                         f"budget, got {resident!r}")
+    if isinstance(resident, bool) or int(resident) < 0:
+        raise ValueError(f"resident byte budget must be ≥ 0, "
+                         f"got {resident!r}")
+    return int(resident)
 
 
 def load_index(path: str, *, backend: Optional[str] = None,
-               expect: Optional[type] = None, device: DeviceLike = None):
-    """Reconstruct an index from a version-1 or version-2 ``.npz``
-    artifact on ``device`` (``None``: CUDA) — written by this package or
-    by ``repro``.
+               expect: Optional[type] = None, device: DeviceLike = None,
+               resident: Union[str, int] = "auto"):
+    """Reconstruct an index from an artifact on ``device`` (``None``:
+    CUDA) — written by this package or by ``repro``.
 
     No corpus, no re-fit, no re-encode.  ``backend`` overrides the stored
-    scorer backend; ``expect`` asserts the artifact kind.
+    scorer backend; ``expect`` asserts the artifact kind.  ``resident``
+    governs a chunked (v3) artifact's residency, as in ``repro``:
+
+    * ``"all"`` — every inverted list materialised into row-major storage
+      and rebuilt lists, bit for bit what the ``.npz`` load gives (fused
+      kernel capable, no store);
+    * an ``int`` — byte budget of an :class:`~repro_torch.storage.store.
+      MmapStore` hot tier: the encoded lists stay on disk behind an
+      ``np.memmap`` and searches stream through the store, with the same
+      bits at any budget;
+    * ``"auto"`` (default) — ``"all"`` when the encoded storage fits
+      ``AUTO_RESIDENT_BYTES``, else a tier at that budget.
+
+    ``.npz`` (v1/v2) artifacts ignore ``resident``.
     """
     dev = resolve_device(device)
-    _check_npz(path)
+    if is_chunked_artifact(path):
+        return _load_index_chunked(path, backend=backend, expect=expect,
+                                   resident=resident, device=dev)
     with np.load(path, allow_pickle=False) as data:
         meta = _parse_meta(data, path)
         kind = meta["kind"]
@@ -418,10 +552,74 @@ def load_index(path: str, *, backend: Optional[str] = None,
             idx = _load_core(kind, meta, data, path, backend, dev)
     if meta.get("spec") is not None:
         idx.spec = IndexSpec.from_dict(meta["spec"])
+    _check_kind(idx, expect, path, kind)
+    return idx
+
+
+def _check_kind(idx, expect: Optional[type], path: str, kind: str) -> None:
     if expect is not None and not isinstance(idx, expect):
         raise TypeError(f"{path} holds a {kind}, expected "
                         f"{expect.__name__} — use api.load_index for "
                         "kind-dispatching loads")
+
+
+def _load_index_chunked(path: str, *, backend: Optional[str],
+                        expect: Optional[type], resident: Union[str, int],
+                        device: torch.device):
+    """Load a v3 chunked artifact at the requested residency."""
+    reader = ChunkReader(path)
+    meta = reader.meta
+    _validate_header(meta, path)
+    kind = meta["kind"]
+    main_kind = meta.get("main_kind", kind)
+    if main_kind not in ("IVFIndex", "IVFFlatIndex"):
+        raise ValueError(f"{path}: chunked artifact holds unsupported "
+                         f"kind {main_kind!r}")
+    m = meta["index"]
+    budget = _resolve_resident(resident, reader.encoded_nbytes)
+    ivf = _make_ivf(meta, backend, main_kind, device)
+    with reader.load_aux() as aux:
+        sd = _ivf_sd_common(meta, aux)
+        if budget is None:
+            # fully resident: scatter the chunks back into row-major
+            # storage — bit for bit the .npz load (lists rebuilt from the
+            # same labels), fused-kernel capable, no store attached
+            storage = np.empty((m["n_docs"], reader.storage_width),
+                               reader.storage_dtype)
+            labels = np.empty(m["n_docs"], np.int32)
+            filled = 0
+            for lid, rows, ids in reader.iter_lists():
+                storage[ids] = rows
+                labels[ids] = lid
+                filled += int(ids.shape[0])
+            if filled != m["n_docs"]:
+                raise ArtifactError(
+                    f"{path}: chunks hold {filled} rows, header says "
+                    f"{m['n_docs']}")
+            reader.close()
+            ivf.load_state_dict({
+                **sd, "storage": port_rows(storage),
+                "lists": build_padded_lists(labels, int(m["nlist"])),
+                "labels": labels})
+        else:
+            ivf.load_state_dict({**sd, "storage": None, "lists": None,
+                                 "labels": None})
+            ivf.store = MmapStore(reader, budget)
+        if meta.get("spec") is not None:
+            ivf.spec = IndexSpec.from_dict(meta["spec"])
+        if kind == "SegmentedIndex":
+            idx = _wrap_segmented(ivf, meta, aux)
+            if ivf.store is not None:
+                # delta rows route to these lists on every probe that can
+                # reach them — keep the write-hot head unevictable
+                for s in idx._state.segments:
+                    if s.labels is not None:
+                        ivf.store.pin(np.unique(s.labels).tolist())
+        else:
+            idx = ivf
+    if meta.get("spec") is not None:
+        idx.spec = IndexSpec.from_dict(meta["spec"])
+    _check_kind(idx, expect, path, kind)
     return idx
 
 
@@ -480,60 +678,53 @@ def _wrap_segmented(main, meta: dict, data) -> SegmentedIndex:
                           if "drift:sum" in data.files else None)})
 
 
-def _rebuild_ivf(meta: dict, data, backend: Optional[str], kind: str,
-                 device: torch.device) -> IVFIndex:
-    """The IVF index an artifact describes, with its state loaded."""
+def _make_ivf(meta: dict, backend: Optional[str], kind: str,
+              device: torch.device) -> IVFIndex:
+    """The (unloaded) IVF shell an artifact header describes."""
     m = meta["index"]
     if kind == "IVFFlatIndex":
-        idx = IVFFlatIndex(nlist=m["nlist_requested"], nprobe=m["nprobe"],
-                           sim=m["sim"], kmeans_iters=m["kmeans_iters"],
-                           device=device)
-    else:
-        pipeline = (build_pipeline_from_spec(meta["stages"])
-                    if meta["stages"] else CompressionPipeline([]))
-        idx = IVFIndex(pipeline, nlist=m["nlist_requested"],
-                       nprobe=m["nprobe"], sim=m["sim"],
-                       backend=backend or m["backend"],
-                       kmeans_iters=m["kmeans_iters"],
-                       residual=bool(m.get("residual", False)),
-                       kmeans_init=str(m.get("kmeans_init", "random")),
-                       balanced=bool(m.get("balanced", False)),
-                       device=device)
-    idx.load_state_dict({
+        return IVFFlatIndex(nlist=m["nlist_requested"], nprobe=m["nprobe"],
+                            sim=m["sim"], kmeans_iters=m["kmeans_iters"],
+                            device=device)
+    pipeline = (build_pipeline_from_spec(meta["stages"])
+                if meta["stages"] else CompressionPipeline([]))
+    return IVFIndex(pipeline, nlist=m["nlist_requested"],
+                    nprobe=m["nprobe"], sim=m["sim"],
+                    backend=backend or m["backend"],
+                    kmeans_iters=m["kmeans_iters"],
+                    residual=bool(m.get("residual", False)),
+                    kmeans_init=str(m.get("kmeans_init", "random")),
+                    balanced=bool(m.get("balanced", False)),
+                    device=device)
+
+
+def _ivf_sd_common(meta: dict, data) -> dict:
+    """The storage-independent part of an IVF ``load_state_dict`` dict,
+    shared by the ``.npz`` and chunked loads (``data`` only needs
+    ``.files`` and ``[]``: an ``aux.npz`` handle works)."""
+    m = meta["index"]
+    return {
         "pipeline": _gather_pipeline_sd(data, [n for n, _ in meta["stages"]],
                                         meta["stage_fitted"]),
-        "storage": data["storage"],
         "centroids": data["centroids"],
-        "lists": data["lists"],
-        "labels": data["labels"] if "labels" in data.files else None,
         "scorer_extra": m.get("scorer_extra", {}),
         "nlist": m["nlist"], "nlist_requested": m["nlist_requested"],
         "nprobe": m["nprobe"], "n_docs": m["n_docs"], "dim": m["dim"],
         "residual": bool(m.get("residual", False)),
         "kmeans_init": str(m.get("kmeans_init", "random")),
         "balanced": bool(m.get("balanced", False)),
-        "version": m.get("version", 0)})
-    return idx
+        "version": m.get("version", 0)}
 
 
-def npz_member_nbytes(path: str) -> dict[str, int]:
-    """{member name: array nbytes} for an ``.npz`` without reading data —
-    only each member's ``.npy`` header is parsed."""
-    out: dict[str, int] = {}
-    with zipfile.ZipFile(path) as zf:
-        for info in zf.infolist():
-            name = info.filename
-            if not name.endswith(".npy"):
-                continue
-            with zf.open(info) as f:
-                version = np.lib.format.read_magic(f)
-                read = (np.lib.format.read_array_header_1_0
-                        if version[0] == 1
-                        else np.lib.format.read_array_header_2_0)
-                shape, _, dtype = read(f)
-            out[name[:-len(".npy")]] = \
-                int(np.prod(shape, dtype=np.int64)) * int(dtype.itemsize)
-    return out
+def _rebuild_ivf(meta: dict, data, backend: Optional[str], kind: str,
+                 device: torch.device) -> IVFIndex:
+    """The IVF index an ``.npz`` artifact describes, with its state."""
+    idx = _make_ivf(meta, backend, kind, device)
+    return idx.load_state_dict({
+        **_ivf_sd_common(meta, data),
+        "storage": data["storage"],
+        "lists": data["lists"],
+        "labels": data["labels"] if "labels" in data.files else None})
 
 
 def _is_seg_storage(name: str) -> bool:
@@ -543,18 +734,29 @@ def _is_seg_storage(name: str) -> bool:
 def load_index_meta(path: str) -> dict:
     """An artifact's identity header without materialising any arrays.
 
-    The same fields and fingerprint as ``repro``'s ``load_index_meta`` for
-    a version-1 or version-2 artifact: ``encoded_nbytes`` is the document
-    storage (the main layer and any delta segments), ``aux_nbytes``
-    everything else but the header.
+    The same fields and fingerprint as ``repro``'s ``load_index_meta``:
+    ``encoded_nbytes`` is the document storage (the main layer and any
+    delta segments), ``aux_nbytes`` everything else an index holds
+    resident (for a chunked artifact the aux members plus the list ids),
+    ``artifact_version`` the on-disk version (1/2 ``.npz``, 3 chunked).
     """
-    _check_npz(path)
-    with np.load(path, allow_pickle=False) as data:
-        meta = _parse_meta(data, path)
-    sizes = npz_member_nbytes(path)
-    encoded = sizes.get("storage", 0) + sum(
-        v for k, v in sizes.items() if _is_seg_storage(k))
-    aux = sum(v for k, v in sizes.items() if k != "__meta__") - encoded
+    if is_chunked_artifact(path):
+        reader = ChunkReader(path)       # manifest only — map stays closed
+        meta = reader.meta
+        _validate_header(meta, path)
+        aux_sizes = npz_member_nbytes(os.path.join(path, "aux.npz"))
+        seg_storage = sum(v for k, v in aux_sizes.items()
+                          if _is_seg_storage(k))
+        encoded = reader.encoded_nbytes + seg_storage
+        aux = (sum(aux_sizes.values()) - seg_storage
+               + int(reader.manifest["ids_nbytes"]))
+    else:
+        with np.load(path, allow_pickle=False) as data:
+            meta = _parse_meta(data, path)
+        sizes = npz_member_nbytes(path)
+        encoded = sizes.get("storage", 0) + sum(
+            v for k, v in sizes.items() if _is_seg_storage(k))
+        aux = sum(v for k, v in sizes.items() if k != "__meta__") - encoded
     m = meta.get("index") or {}
     seg = meta.get("segmented")
     return {

@@ -20,13 +20,25 @@ order:
   top-k (``merge_topk_block``).  Everything else runs here, and it is the
   numerics oracle.
 
+A store-backed (tiered) index — ``load_index(path, resident=budget)`` on a
+chunked v3 artifact — has no resident storage: its lists come from a
+:class:`~repro_torch.storage.store.ListStore`, ``PROBE_BLOCK`` probe slots
+at a time, one ``store.get`` per distinct list of a block, in ``repro``'s
+order (so ``store.stats()`` after a search equals ``repro``'s).  Where the
+resident index would take the fused path, each block's distinct lists are
+stacked into a block-local list-major buffer (one host-to-device copy a
+block) and ranked by one ``ivf_fused`` launch, whose top-k is folded into
+the running top-k by ``masked_topk_by_id`` over both (exact under the
+total order, in a fixed number of launches whatever k): a row's score does
+not depend on where its list sits, so the tiered index gives the resident
+index's bits.  Every other case streams
+the block through ``scores_gathered``, as the resident streaming path.
+
 Routing ranks the (Q, nlist) centroid scores with ``topk_score_then_id``,
 which gives ``lax.top_k``'s lowest-index-first order.  ``fit`` clamps the
 effective ``nlist`` to the corpus size (a cluster that k-means leaves
 empty is an all-pad list); ``search`` returns ``min(k, n_docs)`` columns,
-with (−inf, −1) in slots no probed list can fill.  Store-backed (tiered)
-search waits for the storage slice of the port (ROADMAP A.9): every index
-here is fully resident.
+with (−inf, −1) in slots no probed list can fill.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.preprocess import as_tensor
@@ -42,18 +55,30 @@ from repro_torch.retrieval.index import storage_tensor
 from repro_torch.retrieval.kmeans import assign, assign_balanced, kmeans_fit
 from repro_torch.retrieval.scorers import (Scorer, apply_float_stages,
                                            scorer_for_pipeline)
-from repro_torch.retrieval.topk import (NEG_INF, merge_topk_block, resolve_k,
+from repro_torch.retrieval.topk import (NEG_INF, masked_topk_by_id,
+                                        merge_topk_block, resolve_k,
                                         resolve_nprobe, similarity,
                                         topk_score_then_id)
-from repro_torch.utils import (STORAGE_SLICE, DeviceLike, check_backend,
-                               cdiv, resolve_device)
+from repro_torch.utils import (DeviceLike, check_backend, cdiv,
+                               resolve_device, use_kernel)
 
-__all__ = ["IVFIndex", "IVFFlatIndex", "build_padded_lists",
-           "probe_and_score", "route"]
+__all__ = ["IVFIndex", "IVFFlatIndex", "artifact_rows", "build_padded_lists",
+           "port_rows", "probe_and_score", "route"]
 
 #: probed lists gathered and scored per streaming step; the merge is
 #: associative under the strict order, so any grouping ranks the same
 PROBE_BLOCK = 2
+
+
+def port_rows(rows: np.ndarray) -> np.ndarray:
+    """A stored list's rows as the port holds them: 1-bit words, uint32 in
+    an artifact, become int32 views of the same bytes (no copy)."""
+    return rows.view(np.int32) if rows.dtype == np.uint32 else rows
+
+
+def artifact_rows(rows: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`port_rows`: the dtype ``repro`` writes."""
+    return rows.view(np.uint32) if rows.dtype == np.int32 else rows
 
 
 def route(q: torch.Tensor, centroids: torch.Tensor, sim: str, nprobe: int
@@ -115,6 +140,51 @@ def probe_and_score(q: torch.Tensor, centroids: torch.Tensor,
     return torch.where(valid, s, NEG_INF), cand, valid
 
 
+class _Staging:
+    """Two host buffers that carry the tiered search's blocks to the device.
+
+    On CUDA they are pinned and copied with ``non_blocking=True``, so the
+    host assembles block j + 1 while block j's copy and kernels run; a
+    buffer is refilled only after the event recorded behind its last copy
+    has completed.  On the CPU the buffer is the block itself.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self._bufs: list[Optional[torch.Tensor]] = [None, None]
+        self._events: list = [None, None]
+        self._i = 0
+
+    def take(self, nbytes: int) -> np.ndarray:
+        """The next buffer as a uint8 array of at least ``nbytes``."""
+        self._i = 1 - self._i
+        if self._events[self._i] is not None:
+            self._events[self._i].synchronize()   # its copy has landed
+            self._events[self._i] = None
+        buf = self._bufs[self._i]
+        if buf is None or buf.numel() < nbytes:
+            buf = self._bufs[self._i] = torch.empty(
+                max(nbytes, 1 << 20), dtype=torch.uint8,
+                pin_memory=self.pinned)
+        return buf.numpy()
+
+    def to_device(self, nbytes: int) -> torch.Tensor:
+        """The first ``nbytes`` of the buffer just filled, on the device."""
+        host = self._bufs[self._i][:nbytes]
+        if not self.pinned:
+            return host
+        out = host.to(self.device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._events[self._i] = event
+        return out
+
+
+def _align16(n: int) -> int:
+    return cdiv(n, 16) * 16
+
+
 def build_padded_lists(labels: np.ndarray, nlist: int) -> np.ndarray:
     """(n_docs,) cluster labels → (nlist, max_len) int32 id matrix, −1
     padded; doc ids ascend within each list (one stable argsort)."""
@@ -169,7 +239,7 @@ class IVFIndex:
         self.lists: Optional[torch.Tensor] = None      # (nlist, L) i32, −1 pad
         self.storage: Optional[torch.Tensor] = None    # scorer-encoded rows
         self.spec = None               # set by api.build_index / api.load_index
-        self.store = None              # tiered list store: the storage slice
+        self.store = None              # ListStore when tiered (storage=None)
         self._labels: Optional[np.ndarray] = None      # (n_docs,) cluster ids
         self._n_docs = 0
         self._dim = 0
@@ -250,6 +320,7 @@ class IVFIndex:
         self._version += 1
         self._source = None    # fresh fit: no longer a shared-storage view
         self._list_layout = None
+        self.store = None      # a fresh fit is fully resident
         return self
 
     def _install(self, storage: torch.Tensor, x_route: torch.Tensor,
@@ -287,6 +358,11 @@ class IVFIndex:
     def add(self, docs) -> "IVFIndex":
         """Append docs, routed to the *existing* centroids (no refit); the
         encode is staged, as in :meth:`fit`, for the float routing rows."""
+        if self.store is not None:
+            raise ValueError(
+                "store-backed (tiered) IVF index is read-only — wrap it in "
+                "a SegmentedIndex for live updates, or reload with "
+                "resident='all'")
         if self.centroids is None:
             return self.fit(docs)
         x = apply_float_stages(self.float_stages,
@@ -313,10 +389,15 @@ class IVFIndex:
 
     @property
     def nbytes(self) -> int:
-        """Bytes of the quantized document storage (the paper's metric)."""
-        if self.storage is None:
-            raise ValueError("index is empty")
-        return self.storage.numel() * self.storage.element_size()
+        """Bytes of the quantized document storage (the paper's metric);
+        for a store-backed index the encoded artifact's size, what a fully
+        resident load would hold (``store.stats()["bytes_resident"]`` is
+        the hot tier's)."""
+        if self.storage is not None:
+            return self.storage.numel() * self.storage.element_size()
+        if self.store is not None:
+            return int(self.store.encoded_nbytes)
+        raise ValueError("index is empty")
 
     @property
     def aux_nbytes(self) -> int:
@@ -341,9 +422,11 @@ class IVFIndex:
         It serves the inner product for all four storage formats with
         kernel numerics; 1-bit only at the paper's offset 0.5 (another
         offset has rank-1 terms the kernel does not add).  Everything else
-        streams.
+        streams.  Decided by the backend and the device, so that a
+        store-backed index takes the same route, a probe block at a time.
         """
-        if not self.scorer.use_kernel(self.storage) or self.sim != "ip":
+        if not use_kernel(self.scorer.backend, self.device) \
+                or self.sim != "ip":
             return False
         if self.scorer.name == "onebit":
             return float(self.scorer.quantizer.offset) == 0.5
@@ -406,9 +489,10 @@ class IVFIndex:
         exact search's.  ``query_chunk`` bounds the streaming path's
         gathered block; the fused path takes the batch whole (each list
         is read once for all the queries that probe it; the kernel's
-        wrapper bounds its own buffers).
+        wrapper bounds its own buffers).  A store-backed index walks the
+        queries ``query_chunk`` at a time, as ``repro`` does.
         """
-        if self.storage is None:
+        if self.storage is None and self.store is None:
             raise ValueError("IVFIndex is not fitted")
         if self._source is not None and \
                 self._source[0]._version != self._source[1]:
@@ -420,6 +504,10 @@ class IVFIndex:
         k = resolve_k(k, self._n_docs)
         queries = as_tensor(queries, self.device)
         params = self.scorer.params()
+        if self.storage is None:       # tiered: lists come from the store
+            vals, ids = self._store_search(queries, k, nprobe, query_chunk,
+                                           params)
+            return vals, ids.long()
         if self._use_fused_kernel:
             vals, ids = self._fused_search(queries, k, nprobe, params,
                                            *self._list_major_layout())
@@ -432,18 +520,207 @@ class IVFIndex:
             ids.append(i)
         return torch.cat(vals), torch.cat(ids).long()
 
+    # -- tiered (store-backed) search --------------------------------------
+    def _fetch_block(self, pj: np.ndarray
+                     ) -> tuple[list[tuple[np.ndarray, np.ndarray]],
+                                np.ndarray]:
+        """One probe block's lists from the store: ``pj`` is the (Q, g)
+        slice of the probe table (phantom pad slots carry ``nlist``).
+
+        Each distinct list is fetched once, in first-touch order over the
+        queries then the slots — ``repro``'s ``_gather_block`` order, so
+        the store counts the same touches.  Returns the fetched
+        ``(rows, ids)`` in the port's dtypes and the (Q, g) slot → fetched
+        position map, ``len(fetched)`` at phantom slots.
+        """
+        flat = pj.ravel()
+        uniq, first, inv = np.unique(flat, return_index=True,
+                                     return_inverse=True)
+        order = np.argsort(first, kind="stable")       # first-touch order
+        real = uniq[order] < self.nlist
+        lids = uniq[order][real]
+        fetched = []
+        for lid in lids.tolist():
+            rows, ids = self.store.get(lid)
+            fetched.append((port_rows(rows), ids))
+        pos = np.where(real, np.cumsum(real) - 1, len(lids))
+        rank = np.empty(len(uniq), np.int64)
+        rank[order] = np.arange(len(uniq))
+        return fetched, pos[rank[inv.ravel()]].reshape(pj.shape)
+
+    def _assemble_block(self, staging: _Staging, fetched, local: np.ndarray,
+                        max_len: int, dtype: np.dtype
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Stack a block's fetched lists into a block-local list-major
+        ``(n + 1, L, w)`` storage and ``(n + 1, L)`` ids on the device; the
+        last list is empty (the phantom pad slots' list), pad rows are zero
+        with id −1.  The rows travel packed — no pad bytes — in one copy,
+        with the list starts and lengths and the (Q, g) local probe table;
+        the padded layout is gathered on the device.  Returns (storage,
+        ids, local probes)."""
+        n_lists = len(fetched)
+        w = self.store.storage_width
+        lens = np.array([len(ids) for _, ids in fetched] + [0], np.int32)
+        total = int(lens.sum())
+        starts = np.zeros(n_lists + 1, np.int32)
+        np.cumsum(lens[:-1], out=starts[1:])
+        n_rows_b = (total + 1) * w * dtype.itemsize     # + one zero row
+        o_ids = _align16(n_rows_b)
+        o_starts = o_ids + _align16((total + 1) * 4)
+        o_lens = o_starts + _align16((n_lists + 1) * 4)
+        o_probes = o_lens + _align16((n_lists + 1) * 4)
+        nbytes = o_probes + local.size * 4
+        buf = staging.take(nbytes)
+        rows_h = buf[:n_rows_b].view(dtype).reshape(total + 1, w)
+        ids_h = buf[o_ids: o_ids + (total + 1) * 4].view(np.int32)
+        for (rows, ids), lo, n in zip(fetched, starts, lens):
+            rows_h[lo: lo + n] = rows           # copies out of the map
+            ids_h[lo: lo + n] = ids
+        rows_h[total] = 0
+        ids_h[total] = -1
+        buf[o_starts: o_starts + starts.nbytes] = starts.view(np.uint8)
+        buf[o_lens: o_lens + lens.nbytes] = lens.view(np.uint8)
+        buf[o_probes: nbytes] = local.astype(np.int32).ravel().view(np.uint8)
+        dev = staging.to_device(nbytes)
+        rows_d = dev[:n_rows_b].view(torch.from_numpy(rows_h[:0]).dtype) \
+            .view(total + 1, w)
+        ids_d = dev[o_ids: o_ids + (total + 1) * 4].view(torch.int32)
+        starts_d = dev[o_starts: o_starts + starts.nbytes].view(torch.int32)
+        lens_d = dev[o_lens: o_lens + lens.nbytes].view(torch.int32)
+        probes_d = dev[o_probes: nbytes].view(torch.int32).view(local.shape)
+        ar = torch.arange(max_len, dtype=torch.int32, device=self.device)
+        index = torch.where(ar[None, :] < lens_d[:, None],
+                            starts_d[:, None] + ar[None, :], total).long()
+        return rows_d[index], ids_d[index], probes_d
+
+    def _gather_block(self, fetched, local: np.ndarray, g: int, max_len: int,
+                      dtype: np.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """The streaming route's block: the zero-filled ``(Q, g·L, w)``
+        gathered rows and −1-filled ``(Q, g·L)`` candidate ids, on the
+        device."""
+        n_q = local.shape[0]
+        gathered = np.zeros((n_q, g * max_len, self.store.storage_width),
+                            dtype)
+        cand = np.full((n_q, g * max_len), -1, np.int32)
+        for qi in range(n_q):
+            for j in range(g):
+                p = int(local[qi, j])
+                if p == len(fetched):          # phantom pad slot
+                    continue
+                rows, ids = fetched[p]
+                n = ids.shape[0]
+                gathered[qi, j * max_len: j * max_len + n] = rows
+                cand[qi, j * max_len: j * max_len + n] = ids
+        return (torch.from_numpy(gathered).to(self.device),
+                torch.from_numpy(cand).to(self.device))
+
+    def _store_search(self, queries: torch.Tensor, k: int, nprobe: int,
+                      query_chunk: int, params: dict
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Search with list bytes served by :attr:`store`, ``PROBE_BLOCK``
+        probe slots a step, the queries ``query_chunk`` at a time."""
+        from repro_torch.kernels.ivf_fused import kernel as fused_kernel
+        from repro_torch.kernels.ivf_fused.ops import prepare_queries
+        max_len = max(1, int(self.store.max_len))
+        g = min(PROBE_BLOCK, nprobe)
+        npad = cdiv(nprobe, g) * g             # phantom pad slots, as repro
+        dtype = port_rows(np.empty(0, self.store.storage_dtype)).dtype
+        fused = self._use_fused_kernel
+        if fused:
+            # route the batch whole, as the resident fused search does, so
+            # the encoded queries, bases and probes carry the same bits
+            q = self.encode_queries(queries).float()
+            cvals, probe = route(q, self.centroids, self.sim, nprobe)
+            w = self.store.storage_width
+            qe, base_q = prepare_queries(
+                q, self.scorer.name, params,
+                packed_width=w if self.scorer.name == "onebit" else None)
+            cvals = F.pad(cvals, (0, npad - nprobe))
+            probe_np = probe.cpu().numpy()
+            staging = _Staging(self.device)
+        vals_out, ids_out = [], []
+        for s in range(0, queries.shape[0], query_chunk):
+            e = min(s + query_chunk, queries.shape[0])
+            if fused:
+                probe_c = probe_np[s:e]
+            else:
+                q = self.encode_queries(queries[s:e])
+                cvals, probe = route(q, self.centroids, self.sim, nprobe)
+                qe = self.scorer.encode_queries(q)
+                cvals = F.pad(cvals, (0, npad - nprobe))
+                probe_c = probe.cpu().numpy()
+            probe_c = np.pad(probe_c, ((0, 0), (0, npad - nprobe)),
+                             constant_values=self.nlist)
+            n_q = e - s
+            rv = torch.full((n_q, k), NEG_INF, device=self.device)
+            ri = torch.full((n_q, k), -1, dtype=torch.int32,
+                            device=self.device)
+            for j0 in range(0, npad, g):
+                fetched, local = self._fetch_block(probe_c[:, j0: j0 + g])
+                if fused:
+                    stor_b, ids_b, probes_b = self._assemble_block(
+                        staging, fetched, local, max_len, dtype)
+                    base = base_q[s:e, None].expand(n_q, g).float()
+                    if self.residual:
+                        base = base + cvals[s:e, j0: j0 + g].float()
+                    v, i = fused_kernel.fused_ivf_topk(
+                        probes_b, qe[s:e], stor_b, ids_b, base, k,
+                        self.scorer.name)
+                    # exact under the total order, in a fixed number of
+                    # launches (merge_topk_block's k rounds cost ~9 a round)
+                    rv, ri = masked_topk_by_id(torch.cat([rv, v], dim=1),
+                                               torch.cat([ri, i], dim=1), k)
+                else:
+                    gathered, cand = self._gather_block(fetched, local, g,
+                                                        max_len, dtype)
+                    v = self.scorer.scores_gathered(qe, gathered,
+                                                    params=params)
+                    if self.residual:          # routed q·centroid term
+                        v = v + cvals[:, j0: j0 + g].repeat_interleave(
+                            max_len, dim=1)
+                    rv, ri = merge_topk_block(
+                        rv, ri, torch.where(cand >= 0, v, NEG_INF),
+                        torch.where(cand >= 0, cand, -1), k)
+            vals_out.append(rv)
+            ids_out.append(ri)
+        return torch.cat(vals_out), torch.cat(ids_out)
+
+    def iter_lists(self):
+        """``(list_id, rows, ids)`` for every inverted list in id order, on
+        the host, rows in the artifact's dtype (1-bit words as uint32):
+        straight off the store for a tiered index (its hot tier
+        untouched), else from the resident storage — the walk of a chunked
+        save and of a compaction's fold."""
+        if self.store is not None:
+            yield from self.store.iter_lists()
+            return
+        lists_np = self.lists.cpu().numpy()
+        storage_np = artifact_rows(self.storage.cpu().numpy())
+        for lid in range(self.nlist):
+            members = lists_np[lid]
+            members = members[members >= 0]
+            yield lid, storage_np[members], members
+
     def prefetch(self, queries, nprobe: Optional[int] = None) -> int:
         """Warm a store-backed index's hot tier with the probe table for
-        ``queries``; returns the lists touched — 0 on a fully resident
-        index, which every index of the port is."""
+        ``queries`` (route only, no scoring); returns the lists touched —
+        0 on a fully resident index."""
         if self.store is None:
             return 0
-        raise NotImplementedError(
-            f"store-backed IVF search (prefetch) waits for {STORAGE_SLICE}")
+        nprobe = resolve_nprobe(nprobe, self.nlist, default=self.nprobe)
+        q = self.encode_queries(queries)
+        _, probe = route(q, self.centroids, self.sim, nprobe)
+        lids = np.unique(probe.cpu().numpy().ravel())
+        return self.store.prefetch(lids[lids < self.nlist].tolist())
 
     # -- persistence -------------------------------------------------------
     def state_dict(self) -> dict:
         """Pipeline, storage, router and list layout: the whole artifact."""
+        if self.storage is None and self.store is not None:
+            raise ValueError(
+                "store-backed (tiered) IVF index has no resident storage to "
+                "snapshot — save_index(..., chunked=True) streams it from "
+                "the store, or reload with resident='all' first")
         return {"pipeline": self.pipeline.state_dict(),
                 "storage": self.storage,
                 "centroids": self.centroids,
@@ -460,11 +737,16 @@ class IVFIndex:
                 "version": self._version}
 
     def load_state_dict(self, sd: dict) -> "IVFIndex":
-        """Load state from tensors or numpy arrays (``repro``'s artifacts)."""
+        """Load state from tensors or numpy arrays (``repro``'s artifacts).
+        ``storage`` and ``lists`` are None for a tiered load: the caller
+        attaches the store afterwards (``api._load_index_chunked``)."""
         self.pipeline.load_state_dict(sd["pipeline"], self.device)
-        self.storage = storage_tensor(sd["storage"], self.device)
+        storage, lists = sd["storage"], sd["lists"]
+        self.storage = (storage_tensor(storage, self.device)
+                        if storage is not None else None)
         self.centroids = as_tensor(sd["centroids"], self.device).float()
-        self.lists = as_tensor(sd["lists"], self.device).to(torch.int32)
+        self.lists = (as_tensor(lists, self.device).to(torch.int32)
+                      if lists is not None else None)
         labels = sd.get("labels")
         self._labels = (np.asarray(labels).astype(np.int32)
                         if labels is not None else None)
@@ -480,6 +762,7 @@ class IVFIndex:
         self._version = int(sd.get("version", 0))
         self._source = None            # an artifact owns its storage
         self._list_layout = None
+        self.store = None
         return self
 
     def save(self, path: str) -> None:

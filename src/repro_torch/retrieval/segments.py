@@ -1,8 +1,8 @@
 """Mutable indexes: delta segments + tombstones over a frozen main.
 
-Counterpart of ``repro.retrieval.segments`` for a single-host, fully
-resident main.  :class:`SegmentedIndex` makes an index mutable without
-re-fitting its compression pipeline:
+Counterpart of ``repro.retrieval.segments`` for a single-host main, fully
+resident or store-backed (tiered).  :class:`SegmentedIndex` makes an index
+mutable without re-fitting its compression pipeline:
 
 * **Delta segments** — ``add(docs)`` encodes the new rows through the
   *frozen* fitted pipeline into an append-only segment, with the same
@@ -17,16 +17,19 @@ re-fitting its compression pipeline:
   of a fresh build over the surviving corpus.
 * **Global doc ids** — a monotonic allocator; ids survive compaction.
 * **IVF mains** — added rows are routed to the existing centroids at
-  ``add`` time and compete only when their list is probed.
+  ``add`` time and compete only when their list is probed.  Over a
+  store-backed main the lists those rows route to are pinned in the hot
+  tier.
 * **Drift monitor** — running mean/norm statistics of added docs against
   the pipeline's fitted centering statistics feed
   :meth:`SegmentedIndex.needs_compaction`.
 * **Compaction** — :meth:`SegmentedIndex.compact` folds the layers into a
-  fresh main in memory (storage rows moved, never re-encoded; an IVF main
-  refits only its router) and returns a new index with the same ids.
+  fresh main in memory (storage rows moved, never re-encoded; a resident
+  IVF main refits only its router, a store-backed one keeps it) or, with
+  ``out_path=``, list by list into a chunked v3 artifact, and returns a
+  new index with the same ids.
 
-Sharded mains wait for the sharding slice of the port, and store-backed
-mains and chunked (v3) compaction for the storage slice.
+Sharded mains wait for the sharding slice of the port.
 
 Concurrency: ``add``/``delete`` swap an immutable snapshot under a lock;
 ``search`` reads one snapshot reference and never blocks.
@@ -42,13 +45,14 @@ import torch
 
 from repro_torch.core.preprocess import as_tensor
 from repro_torch.retrieval.index import CompressedIndex, DenseIndex
-from repro_torch.retrieval.ivf import IVFFlatIndex, IVFIndex, route
+from repro_torch.retrieval.ivf import (IVFFlatIndex, IVFIndex, port_rows,
+                                       route)
 from repro_torch.retrieval.kmeans import assign
 from repro_torch.retrieval.scorers import (Scorer, apply_float_stages,
                                            encode_storage)
 from repro_torch.retrieval.topk import (NEG_INF, masked_topk_by_id, resolve_k,
                                         resolve_nprobe)
-from repro_torch.utils import SHARD_SLICE, STORAGE_SLICE
+from repro_torch.utils import SHARD_SLICE
 
 #: ``repro``'s sharded main kinds, which wait for the sharding slice
 _SHARDED_KINDS = ("ShardedCompressedIndex", "ShardedIVFIndex")
@@ -192,9 +196,9 @@ class SegmentedIndex:
     """Delta segments + tombstones layered over an immutable main index.
 
     ``main`` is a fitted :class:`DenseIndex`, :class:`CompressedIndex` or
-    :class:`IVFIndex` / :class:`IVFFlatIndex`, fully resident; its storage
-    is adopted as the base layer and never touched again.  Everything
-    lives on the main's device.
+    :class:`IVFIndex` / :class:`IVFFlatIndex` (resident or store-backed);
+    its storage is adopted as the base layer and never touched again.
+    Everything lives on the main's device.
     """
 
     def __init__(self, main, *, spec=None, drift_threshold: float = 0.35,
@@ -217,10 +221,6 @@ class SegmentedIndex:
                 "delta rows are encoded without the routed-centroid "
                 "subtraction, so cross-layer scores would not be "
                 "comparable — build the main with residual=False")
-        if getattr(main, "store", None) is not None:
-            raise NotImplementedError(
-                f"SegmentedIndex over a store-backed main waits for "
-                f"{STORAGE_SLICE}")
         self.main = main
         self.device = main.device
         self.spec = getattr(main, "spec", None) if spec is None else spec
@@ -330,6 +330,11 @@ class SegmentedIndex:
             self._state = _Snapshot(st.segments + (seg,), tomb,
                                     st.next_gid + n, st.n_live + n,
                                     st.n_main_dead)
+        store = getattr(self.main, "store", None)
+        if labels is not None and store is not None:
+            # a delta row competes whenever its routed list is probed — pin
+            # those lists so merging main + delta never takes a cold miss
+            store.pin(np.unique(labels).tolist())
         return self
 
     def validate_ids(self, ids: Sequence[int],
@@ -496,6 +501,50 @@ class SegmentedIndex:
             return self.main.docs
         return self.main.storage
 
+    def _iter_folded_lists(self, st: _Snapshot):
+        """List-major fold stream for IVF compaction.
+
+        Yields ``(lid, rows, new_ids, gids)`` per inverted list in list
+        order: the list's alive main rows (storage-position order), then
+        its alive delta rows (segment order), ``new_ids`` the sequential
+        row positions of the folded index; rows on the host in the port's
+        dtypes.  Works off a resident main or its store, one list at a
+        time — the whole main is never decoded or concatenated.
+        """
+        main = self.main
+        tomb = st.tomb
+        if st.segments:
+            d_rows = np.concatenate(
+                [s.storage.cpu().numpy() for s in st.segments])
+            d_gids = np.concatenate([s.gids for s in st.segments])
+            d_labels = np.concatenate([s.labels for s in st.segments])
+            alive_d = ~tomb[d_gids]
+            order = np.argsort(d_labels[alive_d], kind="stable")
+            d_rows = d_rows[alive_d][order]
+            d_gids = d_gids[alive_d][order]
+            d_labels = d_labels[alive_d][order]
+        else:
+            d_labels = np.zeros(0, np.int32)
+            d_rows = d_gids = None
+        pos = 0
+        for lid, rows_m, ids_m in main.iter_lists():
+            gids_m = self._main_gids[np.asarray(ids_m)]
+            alive = ~tomb[gids_m]
+            parts_r = [port_rows(np.asarray(rows_m))[alive]]   # a copy
+            parts_g = [gids_m[alive]]
+            lo = np.searchsorted(d_labels, lid, "left")
+            hi = np.searchsorted(d_labels, lid, "right")
+            if hi > lo:
+                parts_r.append(d_rows[lo:hi])
+                parts_g.append(d_gids[lo:hi])
+            rows = (np.concatenate(parts_r) if len(parts_r) > 1
+                    else parts_r[0])
+            gids = (np.concatenate(parts_g) if len(parts_g) > 1
+                    else parts_g[0])
+            new_ids = np.arange(pos, pos + len(gids), dtype=np.int32)
+            pos += len(gids)
+            yield lid, rows, new_ids, gids
+
     def _make_ivf_like_main(self) -> IVFIndex:
         """Fresh unfitted shell with the main's ctor params and frozen
         scorer state."""
@@ -529,16 +578,50 @@ class SegmentedIndex:
                      next_gid=st.next_gid)
         return out
 
+    def _compact_chunked(self, st: _Snapshot, out_path: str,
+                         resident) -> "SegmentedIndex":
+        """Fold straight into a chunked (v3) artifact at ``out_path`` —
+        list by list, keeping the existing router, without decoding (or
+        even concatenating) the main storage — then serve the fold back at
+        the requested residency."""
+        from repro_torch.retrieval.api import (_chunked_header, _rows_layout,
+                                               _write_chunked, load_index)
+        main = self.main
+        meta, aux = _chunked_header(main, None, self.spec)
+        meta["index"]["n_docs"] = st.n_live
+        meta["index"]["version"] = main._version + 1
+        dtype, width = _rows_layout(main)
+        gid_parts = []
+
+        def _rows():
+            for _, rows, new_ids, gids in self._iter_folded_lists(st):
+                gid_parts.append(gids)
+                yield rows, new_ids
+
+        _write_chunked(out_path, meta, aux, _rows(), storage_dtype=dtype,
+                       storage_width=width, n_lists=main.nlist)
+        new_main = load_index(out_path, resident=resident,
+                              device=main.device)
+        return self._wrap_compacted(new_main, st, np.concatenate(gid_parts))
+
     def compact(self, rng: Optional[torch.Generator] = None, *,
-                out_path: Optional[str] = None) -> "SegmentedIndex":
+                out_path: Optional[str] = None,
+                resident="auto") -> "SegmentedIndex":
         """Fold segments + tombstones into a fresh main; returns a NEW
         SegmentedIndex (self keeps serving unchanged).
 
         Storage rows are moved, never re-encoded: the fitted pipeline,
         codebooks and global doc ids carry over, so exact mains rank the
-        surviving rows as before.  IVF mains refit only the k-means router
-        on the float decode of the moved storage.  ``out_path`` (a chunked
-        v3 fold) waits for the storage slice.
+        surviving rows as before.  Resident IVF mains refit only the
+        k-means router on the float decode of the moved storage.  Two
+        tiered flavours keep the router instead (delta rows were routed to
+        it, so the fold is exact) and never decode the main:
+
+        * ``out_path=`` (IVF mains only) streams the fold list by list into
+          a chunked v3 artifact at that path and serves it back at
+          ``resident=`` residency;
+        * a store-backed main without ``out_path`` folds in memory into a
+          fully resident new main.
         """
         st = self._state
         main = self.main
@@ -546,8 +629,23 @@ class SegmentedIndex:
             raise ValueError("cannot compact to an empty index — every doc "
                              "is tombstoned")
         if out_path is not None:
-            raise NotImplementedError(
-                f"chunked compaction (out_path=) waits for {STORAGE_SLICE}")
+            if not self._is_ivf:
+                raise TypeError("chunked compaction (out_path=) lays out "
+                                "IVF inverted lists — "
+                                f"{type(main).__name__} has none")
+            return self._compact_chunked(st, out_path, resident)
+        if self._is_ivf and main.store is not None:
+            rows_all, labels_all, gid_parts = [], [], []
+            for lid, rows, _, gids in self._iter_folded_lists(st):
+                rows_all.append(rows)
+                labels_all.append(np.full(len(gids), lid, np.int32))
+                gid_parts.append(gids)
+            new_main = self._make_ivf_like_main()
+            new_main._install_routed(
+                torch.from_numpy(np.concatenate(rows_all)),
+                np.concatenate(labels_all), main.centroids, main._dim)
+            return self._wrap_compacted(new_main, st,
+                                        np.concatenate(gid_parts))
         alive_main = torch.from_numpy(~st.tomb[self._main_gids]) \
             .to(self.device)
         parts = [self._main_storage()[alive_main]]

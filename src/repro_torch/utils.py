@@ -24,9 +24,7 @@ import torch
 
 BACKENDS = ("auto", "torch", "kernel")
 
-#: the later slices of the port (ROADMAP §A) that what they name waits for
-STORAGE_SLICE = ("the storage slice of the port (ROADMAP A.9: storage/, "
-                 "tiered IVF and chunked v3 artifacts)")
+#: the later slice of the port (ROADMAP §A) that sharded search waits for
 SHARD_SLICE = "the sharding slice of the port (ROADMAP A.12)"
 _FROM_REPRO = {"auto": "auto", "jnp": "torch", "pallas": "kernel"}
 _TO_REPRO = {"auto": "auto", "torch": "jnp", "kernel": "pallas"}

@@ -210,7 +210,9 @@ def test_later_slices_raise_not_implemented(kb, tmp_path):
                                             post=False, mutable=True),
                             docs, device="cpu")
     assert type(seg).__name__ == "SegmentedIndex" and len(seg) == len(docs)
-    with pytest.raises(NotImplementedError, match="storage slice"):
+    # chunked (v3) artifacts load since the storage slice; a directory
+    # without a manifest is no artifact, as in repro
+    with pytest.raises(OSError):
         p_api.load_index(str(tmp_path), device="cpu")
     # IVF builds and loads since slice 2
     spec = p_api.IndexSpec(method="pca_int8", dim=16, post=False, ivf=(8, 2))
@@ -222,6 +224,12 @@ def test_later_slices_raise_not_implemented(kb, tmp_path):
     loaded = p_api.load_index(path, device="cpu")
     assert type(loaded) is type(built) and loaded.spec == spec
     assert loaded.search(docs[:3], 4)[1].shape == (3, 4)
+    v3 = str(tmp_path / "ivf.v3")
+    r_api.save_index(ivf, v3, chunked=True)
+    tiered = p_api.load_index(v3, resident=0, device="cpu")
+    assert tiered.store is not None and tiered.spec == spec
+    assert torch.equal(tiered.search(docs[:3], 4)[1],
+                       loaded.search(docs[:3], 4)[1])
     with pytest.raises(TypeError):
         p_api.save_index(object(), str(tmp_path / "x.npz"))
 

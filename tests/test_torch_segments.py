@@ -238,7 +238,7 @@ def test_all_docs_deleted(data):
         seg.compact()
 
 
-def test_later_slices_raise_naming_their_slice(data, monkeypatch):
+def test_later_slices_raise_naming_their_slice(data, tmp_path):
     ivf = IVFIndex.build(data["docs"], data["queries"],
                          CompressionPipeline([CenterNorm(), PCA(8)]),
                          nlist=4, nprobe=2, kmeans_iters=2, device=CPU)
@@ -247,17 +247,18 @@ def test_later_slices_raise_naming_their_slice(data, monkeypatch):
     assert SegmentedIndex(DenseIndex(data["docs"], device=CPU)) \
         .prefetch(data["queries"]) == 0
     assert seg.place() is seg
-    with pytest.raises(NotImplementedError, match="A.9"):
-        seg.compact(out_path="kb_v3")
     assert seg.shard_stats() is None               # single-host, as repro
     sharded = type("ShardedIVFIndex", (), {})()
     with pytest.raises(NotImplementedError, match="A.12"):
         SegmentedIndex(sharded)
-    monkeypatch.setattr(ivf, "store", object())
-    with pytest.raises(NotImplementedError, match="A.9"):
-        SegmentedIndex(ivf)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ivf.prefetch(data["queries"])
+    # store-backed mains and chunked compaction came with the storage slice
+    # (A.9): the fold serves back tiered, and prefetch warms its tier
+    comp = seg.compact(out_path=str(tmp_path / "kb_v3"), resident=0)
+    assert comp.main.store is not None and len(comp) == len(seg)
+    assert comp.prefetch(data["queries"]) > 0
+    with pytest.raises(TypeError, match="IVF"):
+        SegmentedIndex(DenseIndex(data["docs"], device=CPU)).compact(
+            out_path=str(tmp_path / "dense_v3"))
 
 
 # ---------------------------------------------------------------------------
