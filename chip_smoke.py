@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's exact, IVF, tiered, served and mutable paths
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's exact, IVF, sharded, tiered, served and
+mutable paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-docs 1000000] [--n-queries 2048] [--seed 0]
 
@@ -62,7 +62,22 @@ Phases, each printed as it runs:
    of 256 at nprobe 16, 64 and 256 (qps, p50/p99, recall@10 against
    nprobe = nlist, R-precision's share of float), with the launch counts
    set to 0 before and read after; one batch per index is traced.
-6. tiered and served — the IVF phase's 24x and 100x indexes saved as
+6. sharded — the 24x, 100x, IVF 24x and IVF 100x indexes saved as
+   single-host artifacts and served with ``load_index(shard=...)``
+   over a 1x4 and a 2x2 (replicas 2) mesh, all
+   on cuda:0 (one card: multi-card placement is not exercised, and a line
+   says so); the 2,048 queries in batches of 256 at k = 10 (IVF at nprobe
+   16 and 64): p50/p99/qps beside the single-host index's, launches a
+   batch by kernel, ids and score bits equal to the single-host search.
+   The 1x4 24x and IVF 24x saved as sharded artifacts and loaded back; a
+   sharded build of the post recipe (fused_quantize, codes equal); a
+   SegmentedIndex over the sharded 24x main (16,384 adds, 100 main
+   deletes) against one over the single host, and its compaction (fold +
+   re-shard); the front door with the artifact registered sharded, a
+   stage whose shard 2 fails placement (registry untouched), then a stage
+   and a promote.  After the count: a traced batch per 1x4 index and the
+   empty list's share of ``ivf_score_lists`` on shard 0.
+7. tiered and served — the IVF phase's 24x and 100x indexes saved as
    chunked v3 artifacts under build/tiered (gitignored, removed at the
    end) and loaded at hot-tier budgets 0, enc/8, enc/2, enc and "all"
    (enc: the encoded bytes); 4 batches of 256 queries searched at nprobe
@@ -78,7 +93,7 @@ Phases, each printed as it runs:
    equal to resident), and a RetrievalService with the artifact
    registered at enc/4 and then promoted to "all" (answers equal direct
    search bit for bit; p50 at the front door; tier gauges).
-7. mutable — a second KB of 1M + 131,072 docs: the first 1M are the
+8. mutable — a second KB of 1M + 131,072 docs: the first 1M are the
    main, the rest arrive as 8 adds of 16,384.  ``seg_24x_post`` (the
    paper's pre+post-normalized 24x recipe, encoded by fused_quantize on
    the build and every add; 100 main and 100 delta deletes) and
@@ -91,7 +106,7 @@ Phases, each printed as it runs:
    ids equal), through ``compact()`` and a v2 save/load; the fused encode
    against the staged plain encode on the card; R-precision's share of
    float; one batch per index traced.
-8. the last two lines: ``{"kernels": [...]}`` and the device line.
+9. the last two lines: ``{"kernels": [...]}`` and the device line.
 
 Any failure raises before the last line, and the exit code is non-zero.
 """
@@ -1203,6 +1218,345 @@ def phase_ivf(args, kb, exact, rp_float):
     return counts, indexes
 
 
+#: the sharded phase: meshes on the one card (doc shards × replicas), the
+#: IVF probe widths searched there, and the post-recipe sharded build's docs
+SHARD_MESHES = (("1x4", dict(shards=4)), ("2x2", dict(shards=2, replicas=2)))
+SHARD_NPROBES = (16, 64)
+SHARD_POST_DOCS = 65_536
+
+
+def score_lists_ms(fn, reps: int = 10) -> float:
+    """Mean device ms of one ``ivf_score_lists`` launch over ``reps``
+    traced calls of ``fn`` (the trace may drop a short call's first
+    kernels, so the mean is over the launches it kept)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        if "ivf_score_lists" in evt.key and evt.count and \
+                evt.device_type == torch.autograd.DeviceType.CUDA:
+            return getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0)) \
+                / evt.count / 1e3
+    return float("nan")
+
+
+def ivf_empty_list_share(sharded, queries, nprobe: int) -> dict:
+    """Shard 0 of a 1x4 sharded IVF index, one 256-query batch, three
+    probe tables: every slot (an unowned probe points at the shard's empty
+    list, whose L rows are scored like any list's — the search's table),
+    the owned slots only (unowned slots at −1, which the kernel skips) and
+    the cut table (owned slots first, as wide as the batch's largest owned
+    count).  For each, the mean device ms of ``ivf_score_lists`` (traced)
+    and of the whole ``fused_ivf_topk`` call (CUDA events).  The empty
+    list's share is 1 − owned / every slot; the model's, the empty list's
+    groups of 32 (query, slot) pairs over all groups."""
+    from repro_torch.kernels.ivf_fused import kernel as fused_kernel
+
+    qe, base_q, probe, _ = sharded.fused_inputs(
+        queries[:BATCH], nprobe, sharded.scorer.params())
+    list_storage, list_ids, g2l = sharded._shards[0][0]
+    empty = list_storage.shape[0] - 1
+    every = g2l[probe.long()]
+    owned = every < empty
+    width = int(owned.sum(dim=1).max())
+    order = torch.sort((~owned).to(torch.int8), dim=1,
+                       stable=True).indices[:, :width]
+    tables = {"every slot": every,
+              "owned only": torch.where(owned, every, -1),
+              "cut": torch.gather(every, 1, order)}
+    out = {}
+    for label, table in tables.items():
+        table = table.to(torch.int32).contiguous()
+        base = base_q[:, None].expand(table.shape).float().contiguous()
+
+        def call():
+            fused_kernel.fused_ivf_topk(table, qe, list_storage, list_ids,
+                                        base, K, sharded.scorer.name)
+
+        out[label] = (score_lists_ms(call), cuda_ms(call, 20),
+                      int(table.shape[1]))
+    groups = (torch.bincount(every.reshape(-1).long(),
+                             minlength=empty + 1) + 31) // 32
+    out["share"] = 1.0 - out["owned only"][0] / out["every slot"][0]
+    out["share_call"] = 1.0 - out["owned only"][1] / out["every slot"][1]
+    out["share_model"] = float(groups[empty]) / float(groups.sum())
+    return out
+
+
+def phase_sharded(args, kb, exact, ivf_indexes) -> dict[str, int]:
+    """Sharded search on the one card: the main and IVF phases' 1M-doc
+    indexes (24x, 100x, IVF 24x, IVF 100x), each served from its
+    single-host artifact with ``load_index(shard=...)`` over a 1x4 and a
+    2x2 (replicas 2) mesh on cuda:0, searched in batches of 256 at k = 10
+    (IVF at nprobe 16 and 64) and held to the single-host search in ids
+    and score bits; the sharded artifacts saved and reloaded; a sharded
+    build of the post recipe (fused_quantize); a SegmentedIndex over the
+    sharded 24x main with its compaction (fold + re-shard); the front door
+    with all-or-none staging.  Returns the launch counts of the run."""
+    import shutil
+
+    import repro_torch.parallel.placement as placement
+    from repro_torch.retrieval import (IndexSpec, SegmentedIndex,
+                                       ShardedCompressedIndex, ShardSpec,
+                                       build_index, load_index)
+    from repro_torch.serve import RetrievalService
+
+    t_phase = time.perf_counter()
+    dev = "cuda:0"
+    print("[sharded] multi-card placement is not exercised: this machine "
+          f"has {torch.cuda.device_count()} card, so every shard of every "
+          "mesh lives on cuda:0 (no peer copy between cards, no shards "
+          "running on two cards at once)")
+    queries = kb.queries
+    n_q = queries.shape[0]
+    n_batches = -(-n_q // BATCH)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "sharded")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    singles = {"pca_int8_24x": exact["pca_int8_24x"],
+               "pca_onebit_100x": exact["pca_onebit_100x"],
+               "ivf_int8_24x": ivf_indexes["ivf_int8_24x"],
+               "ivf_rot_onebit_100x": ivf_indexes["ivf_rot_onebit_100x"]}
+
+    def kw_of(nprobe):
+        return {} if nprobe is None else dict(nprobe=nprobe, query_chunk=BATCH)
+
+    probes = {name: (SHARD_NPROBES if name.startswith("ivf") else (None,))
+              for name in singles}
+    paths, ref = {}, {}
+    for name, idx in singles.items():
+        paths[name] = os.path.join(root, f"{name}.npz")
+        idx.save(paths[name])
+        for nprobe in probes[name]:
+            idx.search(queries[:BATCH], K, **kw_of(nprobe))      # warm-up
+            ref[(name, nprobe)] = _search_batches(idx, queries, K,
+                                                  **kw_of(nprobe))
+    print(f"[sharded] single-host artifacts saved and references searched "
+          f"in {time.perf_counter() - t_phase:.1f} s")
+
+    reset_launch_counts()
+    keep = {}
+    for mesh_name, mesh_kw in SHARD_MESHES:
+        spec = ShardSpec(**mesh_kw)
+        for name in singles:
+            t0 = time.perf_counter()
+            idx = load_index(paths[name], shard=spec, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            rows = idx.shard_stats()
+            print(f"[sharded] {mesh_name} {name}: {type(idx).__name__} "
+                  f"({idx.n_query_shards} x {idx.n_doc_shards}) loaded with "
+                  f"shard={spec} in {load_s:.2f} s; shards "
+                  f"{json.dumps(rows)}")
+            for nprobe in probes[name]:
+                kw = kw_of(nprobe)
+                idx.search(queries[:BATCH], K, **kw)              # warm-up
+                before = launch_counts()
+                vals, ids, secs = _search_batches(idx, queries, K, **kw)
+                per_batch = {n: c / n_batches for n, c in diff_counts(
+                    before, launch_counts()).items()}
+                _checked(name, vals, ids, n_q, len(idx))
+                same_ids, same_bits = _same_bits((vals, ids),
+                                                 ref[(name, nprobe)][:2])
+                tag = "" if nprobe is None else f" nprobe {nprobe}"
+                print(f"[sharded] {mesh_name} {name}{tag}: "
+                      f"{latency(secs, n_q)} (single-host "
+                      f"{latency(ref[(name, nprobe)][2], n_q)}); launches "
+                      f"a batch {json.dumps(per_batch)}; vs single-host ids "
+                      f"{'equal' if same_ids else 'DIFFER'}, score bits "
+                      f"{'equal' if same_bits else 'DIFFER'}")
+                if not (same_ids and same_bits):
+                    raise AssertionError(f"sharded {mesh_name} {name}{tag} "
+                                         "differs from the single host")
+            if mesh_name == "1x4":
+                keep[name] = idx
+            del idx
+        torch.cuda.empty_cache()
+
+    # -- the sharded artifacts, saved and loaded back -------------------
+    for name in ("pca_int8_24x", "ivf_int8_24x"):
+        path = os.path.join(root, f"{name}.sharded.npz")
+        keep[name].save(path)
+        back = load_index(path, device=dev)
+        nprobe = probes[name][-1]
+        vals, ids, _ = _search_batches(back, queries, K, **kw_of(nprobe))
+        same = _same_bits((vals, ids), ref[(name, nprobe)][:2])
+        print(f"[sharded] {name}: the 1x4 sharded artifact "
+              f"({os.path.getsize(path) / 2**20:.1f} MiB) loaded back as "
+              f"{type(back).__name__} ({back.n_doc_shards} shards, from the "
+              f"embedded spec): ids {'equal' if same[0] else 'DIFFER'}, "
+              f"score bits {'equal' if same[1] else 'DIFFER'}")
+        if not all(same):
+            raise AssertionError(f"{name}: the reloaded sharded artifact "
+                                 "differs from the single host")
+        del back
+
+    # -- a sharded build of the post recipe encodes by fused_quantize ----
+    post = IndexSpec(stages=(("CenterNorm", {}), ("PCA", {"dim": 128}),
+                             ("CenterNorm", {}), ("Int8Quantizer", {})))
+    docs = kb.docs[:SHARD_POST_DOCS]
+    single = build_index(post, docs, queries, device=dev)
+    sharded = ShardedCompressedIndex(single.pipeline,
+                                     ShardSpec(shards=4).build_mesh(dev))
+    before = launch_counts()["fused_quantize"]
+    sharded.add(docs)
+    encodes = launch_counts()["fused_quantize"] - before
+    same = (torch.equal(sharded.storage, single.storage),
+            *_same_bits(sharded.search(queries[:BATCH], K),
+                        single.search(queries[:BATCH], K)))
+    print(f"[sharded] post recipe, {SHARD_POST_DOCS} docs over 4 shards: "
+          f"fused_quantize launches {encodes}; codes, ids, score bits vs the "
+          f"single-host index: {same}")
+    if encodes < 1 or not all(same):
+        raise AssertionError("the sharded post-recipe build differs from the "
+                             "single host")
+    del single, sharded, docs
+
+    # -- a SegmentedIndex over the sharded 24x main ----------------------
+    name = "pca_int8_24x"
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 23)
+    n_main = len(singles[name])
+    pick = torch.randint(0, n_main, (SEG_ADDS,), generator=gen, device="cuda")
+    adds = kb.docs[pick] + 0.05 * torch.randn(
+        (SEG_ADDS, kb.docs.shape[1]), generator=gen, device="cuda")
+    segs = {"single": SegmentedIndex(load_index(paths[name], device=dev)),
+            "sharded": SegmentedIndex(load_index(
+                paths[name], shard=ShardSpec(shards=4), device=dev))}
+    for seg in segs.values():
+        seg.add(adds)
+    first = _search_batches(segs["single"], queries, K)[1].cpu().numpy()
+    pool = np.unique(first.ravel())
+    dead = np.random.default_rng(args.seed + 29).choice(
+        pool[pool < n_main], SEG_DEAD, replace=False).tolist()
+    got = {}
+    for tag, seg in segs.items():
+        if seg.delete(dead) != SEG_DEAD:
+            raise AssertionError("segmented sharded main: deletes not taken")
+        seg.search(queries[:BATCH], K)                           # warm-up
+        vals, ids, secs = _search_batches(seg, queries, K)
+        got[tag] = (vals, ids)
+        print(f"[sharded] seg over {name} ({tag} main): {SEG_ADDS} adds, "
+              f"{SEG_DEAD} main deletes, main probed k + #dead = "
+              f"{K + SEG_DEAD} deep: {latency(secs, n_q)}")
+    same = _same_bits(got["sharded"], got["single"])
+    print(f"[sharded] seg over the 1x4 sharded {name} vs over the single "
+          f"host: ids {'equal' if same[0] else 'DIFFER'}, score bits "
+          f"{'equal' if same[1] else 'DIFFER'}; shard_stats "
+          f"{json.dumps(segs['sharded'].shard_stats())}")
+    if not all(same):
+        raise AssertionError("the segmented sharded main ranks differently "
+                             "from the single host")
+    t0 = time.perf_counter()
+    comps = {tag: seg.compact() for tag, seg in segs.items()}
+    torch.cuda.synchronize()
+    comp = comps["sharded"]
+    resharded = (type(comp.main) is ShardedCompressedIndex
+                 and comp.main.mesh is segs["sharded"].main.mesh
+                 and comp.main.n_doc_shards == 4)
+    same = _same_bits(_search_batches(comp, queries, K)[:2],
+                      _search_batches(comps["single"], queries, K)[:2])
+    fold = ("re-sharded over the same mesh" if resharded
+            else "NOT RE-SHARDED")
+    print(f"[sharded] compact() of both in {time.perf_counter() - t0:.2f} s:"
+          f" the sharded fold {fold} ({len(comp)} live); vs the single-host"
+          f" fold ids "
+          f"{'equal' if same[0] else 'DIFFER'}, score bits "
+          f"{'equal' if same[1] else 'DIFFER'}; shard_stats "
+          f"{json.dumps(comp.shard_stats())}")
+    if not (resharded and all(same)):
+        raise AssertionError("compaction of the sharded main differs")
+    del segs, comps, comp, adds
+
+    # -- the front door over the sharded 24x artifact --------------------
+    direct_v, direct_i, _ = ref[(name, None)]
+    shard4 = ShardSpec(shards=4)
+
+    def served_equal(svc, version, tag):
+        lat, same = [], True
+        for s in range(0, n_q, BATCH):
+            res = svc.query(queries[s: s + BATCH].cpu().numpy(),
+                            index="kb").result(300)
+            lat.append(res.latency_s)
+            same &= (np.array_equal(res.ids, direct_i[s: s + BATCH]
+                                    .cpu().numpy()) and
+                     np.array_equal(res.scores.view(np.int32),
+                                    direct_v[s: s + BATCH].view(torch.int32)
+                                    .cpu().numpy()))
+        rows = svc.stats()["indexes"]["kb"]["versions"][version]["shards"]
+        ms = sorted(x * 1e3 for x in lat)
+        print(f"[sharded] front door v{version} ({tag}): {len(lat)} queries "
+              f"of {BATCH} rows, p50 {statistics.median(ms):.3f} ms p99 "
+              f"{ms[-1]:.3f} ms; vs direct search "
+              f"{'bit-identical' if same else 'DIFFERS'}; shards "
+              f"{json.dumps(rows)}")
+        if not same or len(rows) != 4:
+            raise AssertionError("the sharded front door's answer differs "
+                                 "from direct search")
+
+    def fail_shard_2(shard_id, n_shards):
+        if shard_id == 2:
+            raise RuntimeError("injected shard-2 placement failure")
+
+    with RetrievalService(max_batch=BATCH) as svc:
+        svc.register("kb", artifact=paths[name], shard=shard4, device=dev)
+        served_equal(svc, 1, "registered with shard=ShardSpec(shards=4)")
+        placement.SHARD_PLACEMENT_HOOK = fail_shard_2
+        try:
+            svc.stage("kb", artifact=paths[name], shard=shard4, device=dev)
+            failed = False
+        except RuntimeError:
+            failed = True
+        finally:
+            placement.SHARD_PLACEMENT_HOOK = None
+        st = svc.stats()["indexes"]["kb"]
+        clean = (st["staged"] is None and st["live"] == 1
+                 and sorted(st["versions"]) == [1])
+        print(f"[sharded] front door: a stage with shard 2 failing placement "
+              f"{'raised' if failed else 'DID NOT RAISE'}; registry "
+              f"{'untouched' if clean else 'CHANGED'} (live {st['live']}, "
+              f"staged {st['staged']}, versions {sorted(st['versions'])})")
+        if not (failed and clean):
+            raise AssertionError("a failed sharded stage changed the registry")
+        vid = svc.stage("kb", artifact=paths[name], shard=shard4,
+                        device=dev)
+        svc.promote("kb")
+        served_equal(svc, vid, "staged and promoted")
+    counts = launch_counts()
+    print(f"[sharded] launches over the sharded path: {counts}")
+    for kern in ("int8_ip", "binary_ip", "topk_blocks", "fused_ivf_topk",
+                 "fused_quantize"):
+        if counts[kern] < 1:
+            raise AssertionError(f"{kern} never launched on the sharded path")
+
+    # -- after the count: traces and the empty list's cost ---------------
+    for name, idx in keep.items():
+        kw = {} if probes[name] == (None,) else kw_of(NPROBE)
+        profile_batches({f"sharded 1x4 {name}": idx}, queries, **kw)
+    for name in ("ivf_int8_24x", "ivf_rot_onebit_100x"):
+        for nprobe in SHARD_NPROBES:
+            e = ivf_empty_list_share(keep[name], queries, nprobe)
+            print(f"[sharded] {name} 1x4 shard 0 nprobe {nprobe}, "
+                  f"ivf_score_lists ms / whole fused_ivf_topk ms (table "
+                  f"width): " + "; ".join(
+                      f"{t} {e[t][0]:.4f} / {e[t][1]:.4f} ({e[t][2]})"
+                      for t in ("every slot", "owned only", "cut"))
+                  + f"; the empty list's share of ivf_score_lists "
+                  f"{e['share']:.3f} ({e['share_call']:.3f} of the call; "
+                  f"{e['share_model']:.3f} of the 32-pair groups)")
+    del keep
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 class _HostClock:
     """Host seconds inside a tiered index's block assembly, by step: its
     store fetches and its packing into the staging buffer (instance
@@ -1768,6 +2122,8 @@ def main(argv=None) -> int:
         lap("main path")
         ivf_counts, ivf_indexes = phase_ivf(args, kb, exact, rp_float)
         lap("IVF")
+        sharded_counts = phase_sharded(args, kb, exact, ivf_indexes)
+        lap("sharded")
         del exact
         torch.cuda.empty_cache()
         tiered_counts = phase_tiered(args, kb, ivf_indexes)
@@ -1778,12 +2134,15 @@ def main(argv=None) -> int:
                                                         "mutable", args))
         lap("mutable")
     # each kernel's launches on the path that drives it (the IVF kernel's
-    # on the resident and the tiered IVF paths together)
+    # on the resident and the tiered IVF paths together), plus the sharded
+    # path's
     ivf_counts = {n: ivf_counts[n] + tiered_counts[n] for n in ivf_counts}
     path_counts = {"fused_ivf_topk": ivf_counts,
                    "fused_quantize": mutable_counts}
     for rec in kernels:
-        rec["launches"] = path_counts.get(rec["name"], counts)[rec["name"]]
+        rec["launches"] = (path_counts.get(rec["name"], counts)[rec["name"]]
+                           + sharded_counts[rec["name"]])
+        rec["launches_sharded"] = sharded_counts[rec["name"]]
     print(f"[done] {time.perf_counter() - t_start:.1f} s ("
           + ", ".join(f"{n} {t} s" for n, t in times.items())
           + f"); card {smi}")

@@ -9,6 +9,9 @@ The declarative front door is :mod:`repro_torch.retrieval.api`::
 
 ``IndexSpec(..., mutable=True)`` builds a :class:`SegmentedIndex`: live
 ``add``/``delete``, ``compact()``, saved as a version-2 artifact.
+``IndexSpec(..., shard=ShardSpec(shards=4))`` builds a
+:class:`ShardedCompressedIndex` (or :class:`ShardedIVFIndex` with ``ivf``)
+over the mesh the spec describes.
 """
 
 from repro_torch.retrieval.api import (IndexSpec, ShardSpec, build_index,
@@ -21,6 +24,9 @@ from repro_torch.retrieval.rprecision import (r_precision,
                                               recall_at_k,
                                               retrieved_relevant_counts)
 from repro_torch.retrieval.segments import DriftMonitor, SegmentedIndex
+from repro_torch.retrieval.sharded import (ShardedCompressedIndex,
+                                           ShardedIVFIndex,
+                                           partition_ivf_lists)
 from repro_torch.retrieval.scorers import (Scorer, get_scorer,
                                            register_scorer,
                                            scorer_for_pipeline, scorer_names)
@@ -32,6 +38,7 @@ __all__ = [
     "load_index_meta", "save_index",
     "CompressedIndex", "DenseIndex", "IVFFlatIndex", "IVFIndex",
     "DriftMonitor", "SegmentedIndex",
+    "ShardedCompressedIndex", "ShardedIVFIndex", "partition_ivf_lists",
     "Scorer", "get_scorer", "register_scorer",
     "scorer_for_pipeline", "scorer_names",
     "r_precision", "r_precision_from_ids", "recall_at_k",

@@ -8,8 +8,9 @@ Counterpart of ``repro.retrieval.api`` for exact and IVF search:
 * :func:`build_index` — registry → pipeline → scorer → IVF, for
   :class:`CompressedIndex`, the float :class:`DenseIndex` and
   :class:`IVFIndex` (``spec.ivf``), wrapped in a :class:`SegmentedIndex`
-  for ``spec.mutable``.  Sharded specs raise ``NotImplementedError``
-  naming the slice of the port that adds them.
+  for ``spec.mutable``; ``spec.shard`` wraps the result over the mesh
+  its :class:`ShardSpec` describes (:class:`ShardedCompressedIndex`,
+  :class:`ShardedIVFIndex`, under a ``SegmentedIndex`` too).
 * :func:`save_index` / :func:`load_index` / :func:`load_index_meta` — the
   artifacts, read and written with numpy alone.  An ``.npz``: ``__meta__``
   is a 0-d JSON string (no pickle), ``pipeline:{i}:{key}`` arrays hold
@@ -25,7 +26,11 @@ Counterpart of ``repro.retrieval.api`` for exact and IVF search:
   fully resident or from a byte-budgeted hot tier (``resident=``).
   ``repro.retrieval.api.load_index`` reads what :func:`save_index`
   writes, and :func:`load_index` reads ``repro``'s — the one way fitted
-  state crosses between the packages.
+  state crosses between the packages.  A sharded index saves its
+  unsharded state under kind ``Sharded*`` with its ``doc_axis`` /
+  ``query_axis`` and the spec; ``load_index`` places it again, and
+  ``load_index(path, shard=ShardSpec(...))`` serves a single-host
+  artifact sharded.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import warnings
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -49,12 +55,14 @@ from repro_torch.retrieval.ivf import (IVFFlatIndex, IVFIndex,
                                        port_rows)
 from repro_torch.retrieval.scorers import OneBitScorer
 from repro_torch.retrieval.segments import SegmentedIndex, _Segment
+from repro_torch.retrieval.sharded import (ShardedCompressedIndex,
+                                           ShardedIVFIndex)
 from repro_torch.storage.format import (ArtifactError, ChunkReader,
                                         ChunkWriter, is_chunked_artifact,
                                         npz_member_nbytes)
 from repro_torch.storage.store import MmapStore
-from repro_torch.utils import (SHARD_SLICE, DeviceLike, backend_to_repro,
-                               check_backend, resolve_device)
+from repro_torch.utils import (DeviceLike, backend_to_repro, check_backend,
+                               resolve_device)
 
 ARTIFACT_FORMAT = "repro-index"
 #: the newest version read: an immutable .npz is version 1, a
@@ -67,9 +75,8 @@ SEGMENTED_NPZ_VERSION = 2
 #: tiers (MmapStore at this budget) beyond it
 AUTO_RESIDENT_BYTES = 1 << 30
 
-#: artifact kinds ``repro`` writes and the port cannot load yet
-_LATER_KINDS = {"ShardedCompressedIndex": SHARD_SLICE,
-                "ShardedIVFIndex": SHARD_SLICE}
+#: the sharded kinds, as artifacts name them
+_SHARDED_KINDS = ("ShardedCompressedIndex", "ShardedIVFIndex")
 
 #: stage-descriptor type: ``(transform class name, constructor kwargs)``
 StageSpec = Tuple[str, dict]
@@ -77,8 +84,17 @@ StageSpec = Tuple[str, dict]
 
 @dataclasses.dataclass(frozen=True)
 class ShardSpec:
-    """Placement for sharded search — kept so specs round-trip; building a
-    sharded index waits for slice 5 of the port."""
+    """Placement for the sharded indexes — the *one* placement surface.
+
+    ``doc_axis`` names the mesh axis (or axes) the document storage is
+    split over; ``shards`` is how many shards that axis gets (``None``:
+    every device the replica count leaves available, one on a named
+    device).  ``replicas`` adds read-scaling replica groups: storage is
+    replicated over the query axis while queries are split over it.
+    ``query_axis`` names that axis (``"data"`` whenever ``replicas > 1``).
+    The mesh is derived from the spec (:meth:`build_mesh`, the device rule
+    of :mod:`repro_torch.parallel.placement`); JSON as ``repro``'s.
+    """
 
     doc_axis: Union[str, Tuple[str, ...]] = "model"
     query_axis: Optional[str] = None
@@ -90,6 +106,19 @@ class ShardSpec:
             raise ValueError(f"shards must be ≥ 1, got {self.shards}")
         if int(self.replicas) < 1:
             raise ValueError(f"replicas must be ≥ 1, got {self.replicas}")
+
+    @property
+    def effective_query_axis(self) -> Optional[str]:
+        """The query/replica mesh axis, or ``None`` for replicated queries."""
+        if self.query_axis is not None:
+            return self.query_axis
+        return "data" if self.replicas > 1 else None
+
+    def build_mesh(self, devices=None):
+        """The mesh this spec describes: ``devices`` ``None`` (every CUDA
+        device), one named device holding every shard, or a list."""
+        from repro_torch.parallel.placement import mesh_from_spec
+        return mesh_from_spec(self, devices=devices)
 
     def to_dict(self) -> dict:
         axis = (list(self.doc_axis) if isinstance(self.doc_axis, tuple)
@@ -155,8 +184,15 @@ class IndexSpec:
         object.__setattr__(self, "backend", check_backend(self.backend))
         if self.kmeans_init not in ("random", "++"):
             raise ValueError(f"unknown kmeans_init {self.kmeans_init!r}")
-        if self.ivf_residual and self.ivf is None:
-            raise ValueError("ivf_residual=True needs ivf=(nlist, nprobe)")
+        if self.ivf_residual:
+            if self.ivf is None:
+                raise ValueError("ivf_residual=True needs ivf=(nlist, "
+                                 "nprobe)")
+            if self.shard is not None or self.mutable:
+                raise ValueError("ivf_residual=True is single-host / "
+                                 "immutable only (the residual re-encode "
+                                 "is incompatible with shared-storage "
+                                 "promotion and delta layers)")
 
     def build_pipeline(self) -> Optional[CompressionPipeline]:
         """Unfitted pipeline for this recipe; ``None`` for a dense index."""
@@ -223,22 +259,58 @@ def _thaw(obj: Any):
     return obj
 
 
-def build_index(spec: IndexSpec, docs, queries_sample=None, *,
+def _lead_device(mesh) -> torch.device:
+    """The mesh's first device: where a sharded index keeps its unsharded
+    state, routes and merges."""
+    return mesh.devices.flat[0]
+
+
+def _resolve_mesh(shard: ShardSpec, mesh, where: str, device: DeviceLike):
+    """Spec-derived mesh on ``device``, honouring (but deprecating) an
+    explicit one."""
+    if mesh is not None:
+        warnings.warn(
+            f"{where}(mesh=...) is deprecated: placement now comes from "
+            "the ShardSpec (shards=/replicas=) and the mesh is derived "
+            "from it — the explicit mesh is still honoured for now",
+            DeprecationWarning, stacklevel=3)
+        return mesh
+    return shard.build_mesh(device)
+
+
+def build_index(spec: IndexSpec, docs, queries_sample=None, *, mesh=None,
                 rng: Optional[torch.Generator] = None,
                 device: DeviceLike = None):
-    """Compose registry → pipeline → scorer on ``device`` (``None``: CUDA).
+    """Compose registry → pipeline → scorer → IVF → sharding on ``device``.
 
     Returns an :class:`IVFIndex` for ``spec.ivf``, else a
     :class:`CompressedIndex`, or a :class:`DenseIndex` for
-    ``method="dense"`` — wrapped in a :class:`SegmentedIndex` for
-    ``spec.mutable``.  ``queries_sample`` feeds the two-population
-    statistics.
+    ``method="dense"``; with ``spec.shard`` a :class:`ShardedIVFIndex` or
+    :class:`ShardedCompressedIndex` over the mesh the spec describes on
+    ``device`` (``None``: every CUDA device; a named device holds every
+    shard) — ``mesh=`` still works but is deprecated.  Wrapped in a
+    :class:`SegmentedIndex` for ``spec.mutable``.  ``queries_sample``
+    feeds the two-population statistics.
     """
-    if spec.shard is not None:
-        raise NotImplementedError(f"sharded indexes wait for {SHARD_SLICE}")
-    dev = resolve_device(device)
     pipeline = spec.build_pipeline()
-    if spec.ivf is not None:
+    if spec.shard is not None:
+        shard = spec.shard
+        mesh = _resolve_mesh(shard, mesh, "build_index", device)
+        pipe = pipeline if pipeline is not None else CompressionPipeline([])
+        if spec.ivf is not None:
+            nlist, nprobe = spec.ivf
+            idx = ShardedIVFIndex.build(
+                docs, queries_sample, pipe, mesh=mesh, nlist=nlist,
+                nprobe=nprobe, sim=spec.sim, backend=spec.backend,
+                kmeans_iters=spec.kmeans_iters, doc_axis=shard.doc_axis,
+                query_axis=shard.effective_query_axis, rng=rng)
+        else:
+            idx = ShardedCompressedIndex.build(
+                docs, queries_sample, pipe, mesh, sim=spec.sim,
+                backend=spec.backend, doc_axis=shard.doc_axis,
+                query_axis=shard.effective_query_axis, rng=rng)
+    elif spec.ivf is not None:
+        dev = resolve_device(device)
         nlist, nprobe = spec.ivf
         idx = IVFIndex.build(docs, queries_sample, pipeline, nlist=nlist,
                              nprobe=nprobe, sim=spec.sim,
@@ -249,12 +321,12 @@ def build_index(spec: IndexSpec, docs, queries_sample=None, *,
                              balanced=spec.balanced_lists, rng=rng,
                              device=dev)
     elif pipeline is None:
-        idx = DenseIndex(docs, sim=spec.sim, device=dev,
+        idx = DenseIndex(docs, sim=spec.sim, device=resolve_device(device),
                          backend=spec.backend)
     else:
         idx = CompressedIndex.build(docs, queries_sample, pipeline,
                                     sim=spec.sim, backend=spec.backend,
-                                    rng=rng, device=dev)
+                                    rng=rng, device=resolve_device(device))
     idx.spec = spec
     if spec.mutable:
         idx = SegmentedIndex(idx, spec=spec)
@@ -309,7 +381,8 @@ def save_index(index, path: str, *, chunked: bool = False) -> None:
     — it has no resident storage to pack into an ``.npz``.
     """
     if not isinstance(index, (SegmentedIndex, DenseIndex, CompressedIndex,
-                              IVFIndex)):
+                              IVFIndex, ShardedCompressedIndex,
+                              ShardedIVFIndex)):
         raise TypeError(f"don't know how to save {type(index).__name__}")
     if chunked:
         return _save_index_chunked(index, path)
@@ -448,19 +521,23 @@ def _collect_index(index, arrays: dict, meta: dict) -> None:
         meta["stage_fitted"] = []
         meta["index"] = {"sim": index.sim, "n_docs": len(index)}
     else:
-        sd = index.state_dict()
+        core = index.ivf if isinstance(index, ShardedIVFIndex) else index
+        sd = core.state_dict()
         if sd["storage"] is None:
             raise ValueError("cannot save an empty index")
-        meta["stages"] = pipeline_spec(index.pipeline)
+        meta["stages"] = pipeline_spec(core.pipeline)
         meta["stage_fitted"] = _flatten_pipeline_sd(sd["pipeline"], arrays)
-        arrays["storage"] = _storage_numpy(sd["storage"], index.scorer)
+        arrays["storage"] = _storage_numpy(sd["storage"], core.scorer)
         meta["index"] = {
-            "sim": index.sim, "backend": backend_to_repro(index.backend),
+            "sim": core.sim, "backend": backend_to_repro(core.backend),
             "n_docs": int(sd["n_docs"]), "dim": int(sd["dim"]),
-            "version": int(sd["version"]),
+            "version": int(sd.get("version", 0)),
             "scorer_extra": sd["scorer_extra"],
         }
-        if isinstance(index, IVFIndex):
+        if isinstance(index, (ShardedCompressedIndex, ShardedIVFIndex)):
+            meta["index"]["doc_axis"] = list(index.doc_axes)
+            meta["index"]["query_axis"] = index.query_axis
+        if isinstance(core, IVFIndex):
             arrays["centroids"] = _numpy(sd["centroids"])
             arrays["lists"] = _numpy(sd["lists"])
             if sd["labels"] is not None:
@@ -472,7 +549,7 @@ def _collect_index(index, arrays: dict, meta: dict) -> None:
                 "residual": bool(sd["residual"]),
                 "kmeans_init": str(sd["kmeans_init"]),
                 "balanced": bool(sd["balanced"]),
-                "kmeans_iters": int(index.kmeans_iters),
+                "kmeans_iters": int(core.kmeans_iters),
             })
 
 
@@ -515,7 +592,8 @@ def _resolve_resident(resident: Union[str, int],
 
 def load_index(path: str, *, backend: Optional[str] = None,
                expect: Optional[type] = None, device: DeviceLike = None,
-               resident: Union[str, int] = "auto"):
+               resident: Union[str, int] = "auto",
+               shard: Optional[ShardSpec] = None, mesh=None):
     """Reconstruct an index from an artifact on ``device`` (``None``:
     CUDA) — written by this package or by ``repro``.
 
@@ -533,25 +611,66 @@ def load_index(path: str, *, backend: Optional[str] = None,
     * ``"auto"`` (default) — ``"all"`` when the encoded storage fits
       ``AUTO_RESIDENT_BYTES``, else a tier at that budget.
 
-    ``.npz`` (v1/v2) artifacts ignore ``resident``.
+    ``.npz`` (v1/v2) artifacts ignore ``resident``; under ``shard=`` it is
+    forced to ``"all"`` (per-shard storage must be resident to be placed).
+
+    Sharded artifacts derive their mesh from the embedded spec on
+    ``device`` (the device rule of :mod:`repro_torch.parallel.placement`:
+    ``None`` every CUDA device, a named device holding every shard);
+    ``shard=ShardSpec(...)`` overrides it, and wraps a *single-host*
+    artifact (``.npz`` or chunked) over the mesh it describes, so one
+    artifact serves both deployments.  ``mesh=`` is still honoured but
+    deprecated.
     """
-    dev = resolve_device(device)
+    if mesh is not None:
+        warnings.warn(
+            "load_index(mesh=...) is deprecated: sharded artifacts derive "
+            "their mesh from the embedded ShardSpec, and single-host "
+            "artifacts shard with shard=ShardSpec(...) — the explicit "
+            "mesh is still honoured for now", DeprecationWarning,
+            stacklevel=2)
     if is_chunked_artifact(path):
-        return _load_index_chunked(path, backend=backend, expect=expect,
-                                   resident=resident, device=dev)
+        if shard is None and mesh is None:
+            return _load_index_chunked(path, backend=backend, expect=expect,
+                                       resident=resident,
+                                       device=resolve_device(device))
+        # sharding needs resident per-shard rows — materialise, then wrap
+        if shard is None:
+            shard = ShardSpec(doc_axis=mesh.axis_names[-1])
+        if mesh is None:
+            mesh = shard.build_mesh(device)
+        idx = _load_index_chunked(path, backend=backend, expect=None,
+                                  resident="all",
+                                  device=_lead_device(mesh))
+        idx = _shard_loaded(idx, shard, mesh)
+        if expect is not None and not isinstance(idx, expect):
+            raise TypeError(f"{path} loaded as {type(idx).__name__}, "
+                            f"expected {expect.__name__}")
+        return idx
     with np.load(path, allow_pickle=False) as data:
         meta = _parse_meta(data, path)
         kind = meta["kind"]
+        core_kind = meta.get("main_kind", kind)
+        if core_kind in _SHARDED_KINDS or shard is not None:
+            if mesh is None:
+                sh = (_artifact_shard(meta, shard)
+                      if core_kind in _SHARDED_KINDS else shard)
+                mesh = sh.build_mesh(device)
+            dev = _lead_device(mesh)
+        else:
+            dev = resolve_device(device)
+        main = _load_core(core_kind, meta, data, path, backend, dev,
+                          mesh=mesh, shard=shard)
         if kind == "SegmentedIndex":
-            main = _load_core(meta["main_kind"], meta, data, path, backend,
-                              dev)
             if meta.get("spec") is not None:
                 main.spec = IndexSpec.from_dict(meta["spec"])
             idx = _wrap_segmented(main, meta, data)
         else:
-            idx = _load_core(kind, meta, data, path, backend, dev)
+            idx = main
     if meta.get("spec") is not None:
         idx.spec = IndexSpec.from_dict(meta["spec"])
+    if shard is not None and not _is_sharded(idx):
+        idx = _shard_loaded(idx, shard, mesh)
     _check_kind(idx, expect, path, kind)
     return idx
 
@@ -624,8 +743,11 @@ def _load_index_chunked(path: str, *, backend: Optional[str],
 
 
 def _load_core(kind: str, meta: dict, data, path: str,
-               backend: Optional[str], device: torch.device):
-    """One core (non-segmented) index from the artifact's arrays."""
+               backend: Optional[str], device: torch.device, *, mesh=None,
+               shard: Optional[ShardSpec] = None):
+    """One core (non-segmented) index from the artifact's arrays; a
+    sharded kind is placed over ``mesh`` (whose lead device is
+    ``device``)."""
     m = meta["index"]
     if kind == "DenseIndex":
         return DenseIndex(data["storage"], sim=m["sim"], device=device,
@@ -644,10 +766,109 @@ def _load_core(kind: str, meta: dict, data, path: str,
             "version": m.get("version", 0)})
     if kind in ("IVFIndex", "IVFFlatIndex"):
         return _rebuild_ivf(meta, data, backend, kind, device)
-    if kind in _LATER_KINDS:
-        raise NotImplementedError(f"{path} holds a {kind}, which waits for "
-                                  f"{_LATER_KINDS[kind]}")
+    if kind == "ShardedCompressedIndex":
+        sh = _artifact_shard(meta, shard)
+        pipeline = (build_pipeline_from_spec(meta["stages"])
+                    if meta["stages"] else CompressionPipeline([]))
+        idx = ShardedCompressedIndex(
+            pipeline, mesh, sim=m["sim"], backend=backend or m["backend"],
+            doc_axis=sh.doc_axis, query_axis=sh.effective_query_axis)
+        return idx.load_state_dict({
+            "pipeline": _gather_pipeline_sd(
+                data, [n for n, _ in meta["stages"]], meta["stage_fitted"]),
+            "storage": data["storage"],
+            "scorer_extra": m.get("scorer_extra", {}),
+            "n_docs": m["n_docs"], "dim": m["dim"]})
+    if kind == "ShardedIVFIndex":
+        sh = _artifact_shard(meta, shard)
+        ivf = _rebuild_ivf(meta, data, backend, "IVFIndex", device)
+        return ShardedIVFIndex(ivf, mesh, doc_axis=sh.doc_axis,
+                               query_axis=sh.effective_query_axis)
     raise ValueError(f"{path}: unknown index kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# sharding a loaded single-host index
+# ---------------------------------------------------------------------------
+
+
+def _is_sharded(idx) -> bool:
+    if isinstance(idx, (ShardedCompressedIndex, ShardedIVFIndex)):
+        return True
+    return isinstance(idx, SegmentedIndex) and isinstance(
+        idx.main, (ShardedCompressedIndex, ShardedIVFIndex))
+
+
+def _spec_with_shard(spec: Optional[IndexSpec],
+                     shard: ShardSpec) -> Optional[IndexSpec]:
+    if spec is None:
+        return None
+    return dataclasses.replace(spec, shard=shard)
+
+
+def _derived_shard(m: dict) -> ShardSpec:
+    """ShardSpec equivalent to what a pre-spec sharded artifact stored."""
+    axis = m.get("doc_axis", "model")
+    if isinstance(axis, list):
+        axis = tuple(axis)
+    if isinstance(axis, tuple) and len(axis) == 1:
+        axis = axis[0]
+    return ShardSpec(doc_axis=axis, query_axis=m.get("query_axis"))
+
+
+def _artifact_shard(meta: dict, shard: Optional[ShardSpec]) -> ShardSpec:
+    """The placement a sharded artifact loads with: an explicit ``shard=``
+    wins, then the spec embedded in the artifact, then a spec derived from
+    the stored axis names (old artifacts)."""
+    if shard is not None:
+        return shard
+    sp = meta.get("spec") or {}
+    if sp.get("shard"):
+        return ShardSpec.from_dict(sp["shard"])
+    return _derived_shard(meta["index"])
+
+
+def _shard_loaded(idx, shard: ShardSpec, mesh=None):
+    """Wrap a loaded single-host index over ``mesh`` (default: the mesh
+    ``shard`` describes over the CUDA devices).
+
+    The one seam that lets a single-host artifact (``.npz`` or chunked,
+    mutable or not) serve sharded: the main fans out over the doc shards,
+    a SegmentedIndex's delta layer stays on the lead device, and rankings
+    stay bit-identical to the single-host index.
+    """
+    if mesh is None:
+        mesh = shard.build_mesh()
+    if isinstance(idx, SegmentedIndex):
+        st = idx._state
+        main = _shard_loaded(idx.main, shard, mesh)
+        out = SegmentedIndex(main, spec=_spec_with_shard(idx.spec, shard),
+                             drift_threshold=idx.drift_threshold,
+                             max_delta_fraction=idx.max_delta_fraction)
+        return out._restore(main_gids=idx._main_gids, tomb=st.tomb,
+                            next_gid=st.next_gid, segments=st.segments,
+                            drift_sd=idx.drift.state_dict())
+    if isinstance(idx, IVFIndex):
+        if idx.store is not None:
+            raise ValueError(
+                "shard= needs a fully resident index — store-backed "
+                "storage cannot be placed; load with resident='all'")
+        out = ShardedIVFIndex(idx, mesh, doc_axis=shard.doc_axis,
+                              query_axis=shard.effective_query_axis)
+    elif isinstance(idx, CompressedIndex):
+        out = ShardedCompressedIndex(
+            idx.pipeline, mesh, sim=idx.sim, backend=idx.backend,
+            doc_axis=shard.doc_axis, query_axis=shard.effective_query_axis)
+        out.scorer.load_extra_state(idx.scorer.extra_state())
+        out._storage_host = idx.storage.to(out.device)
+        out._n_docs = len(idx)
+        out._dim = idx._dim
+    else:
+        raise TypeError(
+            f"shard= cannot wrap a {type(idx).__name__} — sharding covers "
+            "CompressedIndex, IVFIndex, and their mutable wrappers")
+    out.spec = _spec_with_shard(idx.spec, shard)
+    return out
 
 
 def _wrap_segmented(main, meta: dict, data) -> SegmentedIndex:

@@ -1,8 +1,8 @@
 """Mutable indexes: delta segments + tombstones over a frozen main.
 
-Counterpart of ``repro.retrieval.segments`` for a single-host main, fully
-resident or store-backed (tiered).  :class:`SegmentedIndex` makes an index
-mutable without re-fitting its compression pipeline:
+Counterpart of ``repro.retrieval.segments``: over a single-host main
+(fully resident or store-backed) or a sharded one.  :class:`SegmentedIndex`
+makes an index mutable without re-fitting its compression pipeline:
 
 * **Delta segments** — ``add(docs)`` encodes the new rows through the
   *frozen* fitted pipeline into an append-only segment, with the same
@@ -28,8 +28,10 @@ mutable without re-fitting its compression pipeline:
   IVF main refits only its router, a store-backed one keeps it) or, with
   ``out_path=``, list by list into a chunked v3 artifact, and returns a
   new index with the same ids.
-
-Sharded mains wait for the sharding slice of the port.
+* **Sharded mains** — the delta layer stays on the main's lead device
+  (deltas are small by the compaction contract) and scores through the
+  same scorer; compaction folds there and re-shards the folded main over
+  the same mesh in one step.
 
 Concurrency: ``add``/``delete`` swap an immutable snapshot under a lock;
 ``search`` reads one snapshot reference and never blocks.
@@ -50,12 +52,15 @@ from repro_torch.retrieval.ivf import (IVFFlatIndex, IVFIndex, port_rows,
 from repro_torch.retrieval.kmeans import assign
 from repro_torch.retrieval.scorers import (Scorer, apply_float_stages,
                                            encode_storage)
+from repro_torch.retrieval.sharded import (ShardedCompressedIndex,
+                                           ShardedIVFIndex)
 from repro_torch.retrieval.topk import (NEG_INF, masked_topk_by_id, resolve_k,
                                         resolve_nprobe)
-from repro_torch.utils import SHARD_SLICE
 
-#: ``repro``'s sharded main kinds, which wait for the sharding slice
-_SHARDED_KINDS = ("ShardedCompressedIndex", "ShardedIVFIndex")
+#: mains whose storage fans out over a mesh — the delta layer stays on the
+#: lead device and scores through the same scorer, so the cross-layer
+#: merge is bit-comparable
+_SHARDED_MAINS = (ShardedCompressedIndex, ShardedIVFIndex)
 
 
 def fitted_center_mean(pipeline) -> Optional[torch.Tensor]:
@@ -196,9 +201,11 @@ class SegmentedIndex:
     """Delta segments + tombstones layered over an immutable main index.
 
     ``main`` is a fitted :class:`DenseIndex`, :class:`CompressedIndex` or
-    :class:`IVFIndex` / :class:`IVFFlatIndex` (resident or store-backed);
-    its storage is adopted as the base layer and never touched again.
-    Everything lives on the main's device.
+    :class:`IVFIndex` / :class:`IVFFlatIndex` (resident or store-backed),
+    or a sharded :class:`~repro_torch.retrieval.sharded.
+    ShardedCompressedIndex` / :class:`~repro_torch.retrieval.sharded.
+    ShardedIVFIndex`; its storage is adopted as the base layer and never
+    touched again.  The delta layer lives on the main's (lead) device.
     """
 
     def __init__(self, main, *, spec=None, drift_threshold: float = 0.35,
@@ -206,13 +213,12 @@ class SegmentedIndex:
         if isinstance(main, SegmentedIndex):
             raise TypeError("SegmentedIndex cannot wrap another "
                             "SegmentedIndex")
-        if type(main).__name__ in _SHARDED_KINDS:
-            raise NotImplementedError(
-                f"SegmentedIndex over a sharded main waits for {SHARD_SLICE}")
-        if not isinstance(main, (DenseIndex, CompressedIndex, IVFIndex)):
+        if not isinstance(main, (DenseIndex, CompressedIndex, IVFIndex)
+                          + _SHARDED_MAINS):
             raise TypeError(
                 f"SegmentedIndex cannot wrap a {type(main).__name__} — "
-                "mains are Dense/Compressed/IVF indexes")
+                "mains are Dense/Compressed/IVF indexes or their sharded "
+                "wrappers")
         if len(main) == 0:
             raise ValueError("main index is empty — build it first")
         if getattr(main, "residual", False):
@@ -222,6 +228,10 @@ class SegmentedIndex:
                 "subtraction, so cross-layer scores would not be "
                 "comparable — build the main with residual=False")
         self.main = main
+        self._sharded = isinstance(main, _SHARDED_MAINS)
+        # the single-host core the compaction machinery folds: the wrapped
+        # IVFIndex for a sharded IVF main, the main itself otherwise
+        self._core = main.ivf if isinstance(main, ShardedIVFIndex) else main
         self.device = main.device
         self.spec = getattr(main, "spec", None) if spec is None else spec
         self.sim = main.sim
@@ -236,7 +246,7 @@ class SegmentedIndex:
             self.scorer = main.scorer
             pipeline = main.pipeline
         self.drift = DriftMonitor(fitted_center_mean(pipeline))
-        self._is_ivf = isinstance(main, IVFIndex)
+        self._is_ivf = isinstance(main, (IVFIndex, ShardedIVFIndex))
         self._main_version = getattr(main, "_version", None)
         n_main = len(main)
         self._main_gids = np.arange(n_main, dtype=np.int32)
@@ -485,15 +495,33 @@ class SegmentedIndex:
         }
 
     def place(self) -> "SegmentedIndex":
-        """The serving layer's staging hook: a single-host main is placed
-        on its device already, so there is nothing to force."""
+        """Force the main's placement now (a single-host main is placed
+        already) — the serving layer's all-or-none staging hook."""
+        fn = getattr(self.main, "place", None)
+        if fn is not None:
+            fn()
         return self
 
-    def shard_stats(self) -> None:
-        """Per-shard rollup of a sharded main: None, as ``repro`` answers
-        for a single-host main — sharded mains wait for the sharding
-        slice, and the constructor refuses them."""
-        return None
+    def shard_stats(self) -> Optional[list]:
+        """Per-shard rollup when the main is sharded (None otherwise):
+        the main's own rollup plus how many live delta rows would fold
+        into each shard's lists (routed label → owning shard)."""
+        fn = getattr(self.main, "shard_stats", None)
+        if fn is None:
+            return None
+        rows = fn()
+        for r in rows:
+            r["n_delta"] = 0
+        st = self._state
+        owner = getattr(self.main, "list_owner", None)
+        if owner is not None and st.segments:
+            labels = np.concatenate([s.labels for s in st.segments])
+            gids = np.concatenate([s.gids for s in st.segments])
+            counts = np.bincount(owner[labels[~st.tomb[gids]]],
+                                 minlength=len(rows))
+            for r in rows:
+                r["n_delta"] = int(counts[r["shard"]])
+        return rows
 
     # -- compaction --------------------------------------------------------
     def _main_storage(self) -> torch.Tensor:
@@ -548,7 +576,7 @@ class SegmentedIndex:
     def _make_ivf_like_main(self) -> IVFIndex:
         """Fresh unfitted shell with the main's ctor params and frozen
         scorer state."""
-        main = self.main
+        main = self._core
         if isinstance(main, IVFFlatIndex):
             new_main = IVFFlatIndex(
                 nlist=main._nlist_requested, nprobe=main.nprobe,
@@ -566,9 +594,31 @@ class SegmentedIndex:
         new_main.scorer.load_extra_state(self.scorer.extra_state())
         return new_main
 
+    def _reshard_main(self, new_main):
+        """Wrap a freshly folded single-host main over the old main's mesh
+        — compaction for sharded mains is fold + re-shard in one step."""
+        main = self.main
+        if isinstance(main, ShardedIVFIndex):
+            out = ShardedIVFIndex(new_main, main.mesh,
+                                  doc_axis=main.doc_axes,
+                                  query_axis=main.query_axis)
+        else:
+            out = ShardedCompressedIndex(
+                new_main.pipeline, main.mesh, sim=new_main.sim,
+                backend=main.backend, doc_axis=main.doc_axes,
+                query_axis=main.query_axis)
+            out.scorer.load_extra_state(new_main.scorer.extra_state())
+            out._storage_host = new_main.storage
+            out._n_docs = len(new_main)
+            out._dim = new_main._dim
+        out.spec = getattr(new_main, "spec", None)
+        return out
+
     def _wrap_compacted(self, new_main, st: _Snapshot,
                         gids: np.ndarray) -> "SegmentedIndex":
         new_main.spec = getattr(self.main, "spec", None)
+        if self._sharded:
+            new_main = self._reshard_main(new_main)
         out = SegmentedIndex(new_main, spec=self.spec,
                              drift_threshold=self.drift_threshold,
                              max_delta_fraction=self.max_delta_fraction)
@@ -629,6 +679,12 @@ class SegmentedIndex:
             raise ValueError("cannot compact to an empty index — every doc "
                              "is tombstoned")
         if out_path is not None:
+            if self._sharded:
+                raise TypeError(
+                    "chunked compaction (out_path=) folds on a single "
+                    "host — sharded mains compact in memory and re-shard; "
+                    "save the compacted index and re-load it tiered "
+                    "instead")
             if not self._is_ivf:
                 raise TypeError("chunked compaction (out_path=) lays out "
                                 "IVF inverted lists — "

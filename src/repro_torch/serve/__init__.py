@@ -3,9 +3,8 @@ execution cores.
 
 Counterpart of ``repro.serve`` over the port's indexes, with the same
 locks, counters and stats shape.  Results reach the host as numpy arrays
-in one place (:meth:`ServeEngine.drain`); sharded placement
-(``mesh=``/``shard=``) waits for the sharding slice of the port and
-raises ``NotImplementedError``.
+in one place (:meth:`ServeEngine.drain`); ``shard=ShardSpec(...)`` serves
+an artifact sharded over a mesh of devices, placed all-or-none.
 
 * :class:`~repro_torch.serve.service.RetrievalService` — the front door: a
   registry of named, versioned indexes (in-memory or lazily loaded from

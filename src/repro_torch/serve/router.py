@@ -1,8 +1,7 @@
 """Versioned index registry: the routing layer under ``RetrievalService``.
 
-Counterpart of ``repro.serve.router``.  ``mesh=``/``shard=`` are kept in
-the signatures and raise ``NotImplementedError`` until the sharding slice
-of the port lands.
+Counterpart of ``repro.serve.router``.  ``shard=`` (a ``ShardSpec``, or
+the deprecated ``mesh=``) loads an artifact sharded, on ``device``.
 
 The registry maps a *name* ("wiki", "datastore", …) to an
 :class:`IndexEntry`; each entry owns a monotonically numbered set of
@@ -33,13 +32,7 @@ from typing import Iterator, Optional
 from repro_torch.serve.batcher import MicroBatcher
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.metrics import LatencyStats
-from repro_torch.utils import SHARD_SLICE, DeviceLike
-
-
-def _check_single_host(mesh, shard) -> None:
-    if mesh is not None or shard is not None:
-        raise NotImplementedError(
-            f"sharded serving (mesh=/shard=) waits for {SHARD_SLICE}")
+from repro_torch.utils import DeviceLike
 
 
 def load_engine(artifact: str, *, mesh=None, shard=None,
@@ -54,12 +47,12 @@ def load_engine(artifact: str, *, mesh=None, shard=None,
     (``shard=ShardSpec(...)``, or the spec embedded in a sharded
     artifact), backend override, and chunked-artifact residency behave
     identically no matter which door the artifact came in through.
-    ``device`` is where the index lives (``None``: CUDA).
+    ``device`` is where the index lives (``None``: CUDA; for a sharded
+    load, the device rule of :mod:`repro_torch.parallel.placement`).
     """
     from repro_torch.retrieval.api import load_index
-    _check_single_host(mesh, shard)
-    index = load_index(artifact, backend=backend, resident=resident,
-                       device=device)
+    index = load_index(artifact, mesh=mesh, backend=backend,
+                       resident=resident, shard=shard, device=device)
     return ServeEngine(index, k=k, batcher=batcher)
 
 
@@ -82,7 +75,6 @@ class IndexVersion:
             raise ValueError("IndexVersion needs exactly one of index= "
                              "(in-memory) or artifact= (saved artifact "
                              "path)")
-        _check_single_host(mesh, shard)
         self.version = version
         self.artifact = artifact
         self.mesh = mesh

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.serve.service`` over the port's indexes: the same
 locks, admission, canary and stats.  Artifacts load on ``device=``
-(``None``: CUDA); sharded placement waits for the sharding slice.
+(``None``: CUDA), sharded with ``shard=ShardSpec(...)``.
 
 One process-wide object fronts a registry of **named, versioned indexes**
 (each backed by an in-memory index or lazily loaded from a
@@ -275,9 +275,10 @@ class RetrievalService:
         ``save_index`` ``.npz`` path or chunked artifact directory).  With
         ``lazy=True`` the artifact's arrays are not loaded until the first
         query routes to it — only the identity header is read up front.
-        ``shard`` (a :class:`~repro_torch.retrieval.api.ShardSpec`) and
-        ``mesh`` raise ``NotImplementedError`` until the sharding slice of
-        the port; ``backend`` and ``device`` (``None``: CUDA) forward to
+        ``shard`` (a :class:`~repro_torch.retrieval.api.ShardSpec`) loads
+        the artifact sharded over the mesh the spec describes (``mesh``:
+        the deprecated explicit mesh); ``backend`` and ``device``
+        (``None``: CUDA) forward to
         :func:`~repro_torch.retrieval.api.load_index`.  ``resident_budget``
         forwards as ``load_index(..., resident=...)`` for chunked (v3)
         artifacts: ``None`` means ``"auto"``; an int byte budget serves

@@ -24,8 +24,6 @@ import torch
 
 BACKENDS = ("auto", "torch", "kernel")
 
-#: the later slice of the port (ROADMAP §A) that sharded search waits for
-SHARD_SLICE = "the sharding slice of the port (ROADMAP A.12)"
 _FROM_REPRO = {"auto": "auto", "jnp": "torch", "pallas": "kernel"}
 _TO_REPRO = {"auto": "auto", "torch": "jnp", "kernel": "pallas"}
 

@@ -9,6 +9,7 @@ The port's own fits are held to ``repro``'s by retrieval quality.
 """
 
 import ast
+import dataclasses
 import json
 import os
 import pathlib
@@ -200,11 +201,18 @@ def test_load_index_meta_matches_repro(kb, tmp_path):
 
 def test_later_slices_raise_not_implemented(kb, tmp_path):
     docs = np.asarray(kb.docs)
-    with pytest.raises(NotImplementedError, match="slice"):
-        p_api.build_index(p_api.IndexSpec(method="pca_int8", dim=16,
-                                          post=False,
-                                          shard=p_api.ShardSpec()),
-                          docs, device="cpu")
+    # sharded indexes build since the sharding slice (A.12): a named
+    # device holds every shard, and the rows split as repro splits them
+    spec = p_api.IndexSpec(method="pca_int8", dim=16, post=False,
+                           shard=p_api.ShardSpec(shards=4))
+    sharded = p_api.build_index(spec, docs, device="cpu")
+    assert type(sharded).__name__ == "ShardedCompressedIndex"
+    assert [r["n_docs"] for r in sharded.shard_stats()] == [375] * 4
+    single = p_api.build_index(dataclasses.replace(spec, shard=None), docs,
+                               device="cpu")
+    for got, want in zip(sharded.search(docs[:5], 7),
+                         single.search(docs[:5], 7)):
+        assert torch.equal(got, want)
     # mutable indexes build since the mutable slice
     seg = p_api.build_index(p_api.IndexSpec(method="pca_int8", dim=16,
                                             post=False, mutable=True),

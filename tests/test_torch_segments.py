@@ -25,7 +25,9 @@ import repro_torch.retrieval.api as p_api  # noqa: E402
 from repro_torch.core import (CenterNorm, CompressionPipeline,  # noqa: E402
                               FloatCast, Int8Quantizer, OneBitQuantizer, PCA)
 from repro_torch.retrieval import (CompressedIndex, DenseIndex,  # noqa: E402
-                                   DriftMonitor, IVFIndex, SegmentedIndex)
+                                   DriftMonitor, IVFIndex, SegmentedIndex,
+                                   ShardedIVFIndex)
+from repro_torch.retrieval.api import ShardSpec  # noqa: E402
 from repro_torch.retrieval.kmeans import assign  # noqa: E402
 from repro_torch.retrieval.scorers import apply_float_stages  # noqa: E402
 from repro_torch.retrieval.segments import fitted_center_mean  # noqa: E402
@@ -248,9 +250,18 @@ def test_later_slices_raise_naming_their_slice(data, tmp_path):
         .prefetch(data["queries"]) == 0
     assert seg.place() is seg
     assert seg.shard_stats() is None               # single-host, as repro
-    sharded = type("ShardedIVFIndex", (), {})()
-    with pytest.raises(NotImplementedError, match="A.12"):
-        SegmentedIndex(sharded)
+    # sharded mains came with the sharding slice (A.12): placement is
+    # forwarded, the rollup counts each shard's delta rows; a look-alike
+    # that is not an index is still refused
+    sharded = SegmentedIndex(ShardedIVFIndex(
+        ivf, ShardSpec(shards=2).build_mesh(CPU)))
+    sharded.add(data["extra"][:6])
+    assert sharded.place() is sharded
+    rows = sharded.shard_stats()
+    assert [r["shard"] for r in rows] == [0, 1]
+    assert sum(r["n_delta"] for r in rows) == 6
+    with pytest.raises(TypeError, match="cannot wrap"):
+        SegmentedIndex(type("ShardedIVFIndex", (), {})())
     # store-backed mains and chunked compaction came with the storage slice
     # (A.9): the fold serves back tiered, and prefetch warms its tier
     comp = seg.compact(out_path=str(tmp_path / "kb_v3"), resident=0)

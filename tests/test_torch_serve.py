@@ -23,8 +23,8 @@ torch = pytest.importorskip("torch")
 import repro.retrieval.api as r_api  # noqa: E402
 from repro.serve import RetrievalService as RService  # noqa: E402
 from repro_torch.retrieval import (DenseIndex, IndexSpec,  # noqa: E402
-                                   build_index, load_index, load_index_meta,
-                                   save_index)
+                                   ShardSpec, build_index, load_index,
+                                   load_index_meta, save_index)
 from repro_torch.serve import (CanaryFailed, QueryOptions,  # noqa: E402
                                QueueFull, RateLimited, RateLimiter,
                                RetrievalService, ServeEngine, ServiceClosed,
@@ -161,12 +161,20 @@ def test_lazy_artifact_and_sharded_placement(artifacts, corpus):
         res = svc.query(q, index="kb", k=K).result(JOIN_S)
         np.testing.assert_array_equal(res.ids, _np(_expected(p1, q)[1]))
         assert svc.stats()["indexes"]["kb"]["versions"][1]["loaded"]
-        # sharded placement waits for the sharding slice (ROADMAP A.12)
-        with pytest.raises(NotImplementedError, match="A.12"):
-            svc.register("sharded", artifact=p1, shard=object(), device=CPU)
-        assert "sharded" not in svc.indexes()
-    with pytest.raises(NotImplementedError, match="A.12"):
-        load_engine(p1, mesh=object(), device=CPU)
+        # sharded placement came with the sharding slice (ROADMAP A.12):
+        # the same artifact served over 2 shards gives the same bits
+        svc.register("sharded", artifact=p1, shard=ShardSpec(shards=2),
+                     device=CPU)
+        res = svc.query(q, index="sharded", k=K).result(JOIN_S)
+        want_v, want_i = _expected(p1, q)
+        np.testing.assert_array_equal(res.ids, _np(want_i))
+        np.testing.assert_array_equal(_bits(res.scores), _bits(want_v))
+        row = svc.stats()["indexes"]["sharded"]["versions"][1]
+        assert [s["n_docs"] for s in row["shards"]] == [200, 200]
+    with pytest.warns(DeprecationWarning, match="mesh"):
+        engine = load_engine(p1, mesh=ShardSpec(shards=2).build_mesh(CPU),
+                             shard=ShardSpec())
+    assert engine.index.n_doc_shards == 2
 
 
 def test_one_artifact_serves_the_same_ids_in_both_packages(artifacts,
