@@ -1249,8 +1249,8 @@ def score_lists_ms(fn, reps: int = 10) -> float:
 def ivf_empty_list_share(sharded, queries, nprobe: int) -> dict:
     """Shard 0 of a 1x4 sharded IVF index, one 256-query batch, three
     probe tables: every slot (an unowned probe points at the shard's empty
-    list, whose L rows are scored like any list's — the search's table),
-    the owned slots only (unowned slots at −1, which the kernel skips) and
+    list, whose L rows are scored like any list's), the owned slots only
+    (unowned slots at −1, which the kernel skips — the search's table) and
     the cut table (owned slots first, as wide as the batch's largest owned
     count).  For each, the mean device ms of ``ivf_score_lists`` (traced)
     and of the whole ``fused_ivf_topk`` call (CUDA events).  The empty
@@ -1262,13 +1262,13 @@ def ivf_empty_list_share(sharded, queries, nprobe: int) -> dict:
         queries[:BATCH], nprobe, sharded.scorer.params())
     list_storage, list_ids, g2l = sharded._shards[0][0]
     empty = list_storage.shape[0] - 1
-    every = g2l[probe.long()]
-    owned = every < empty
+    search = g2l[probe.long()]
+    owned = search >= 0
+    every = torch.where(owned, search, empty)
     width = int(owned.sum(dim=1).max())
     order = torch.sort((~owned).to(torch.int8), dim=1,
                        stable=True).indices[:, :width]
-    tables = {"every slot": every,
-              "owned only": torch.where(owned, every, -1),
+    tables = {"every slot": every, "owned only": search,
               "cut": torch.gather(every, 1, order)}
     out = {}
     for label, table in tables.items():
@@ -1338,8 +1338,47 @@ def phase_sharded(args, kb, exact, ivf_indexes) -> dict[str, int]:
             idx.search(queries[:BATCH], K, **kw_of(nprobe))      # warm-up
             ref[(name, nprobe)] = _search_batches(idx, queries, K,
                                                   **kw_of(nprobe))
-    print(f"[sharded] single-host artifacts saved and references searched "
-          f"in {time.perf_counter() - t_phase:.1f} s")
+    # -- the single-host twins of the post-recipe build and the segmented
+    # main, run before the count so that it holds the sharded path alone
+    post = IndexSpec(stages=(("CenterNorm", {}), ("PCA", {"dim": 128}),
+                             ("CenterNorm", {}), ("Int8Quantizer", {})))
+    docs = kb.docs[:SHARD_POST_DOCS]
+    single = build_index(post, docs, queries, device=dev)
+    post_ref = single.search(queries[:BATCH], K)
+    post_pipeline, post_codes = single.pipeline, single.storage
+    del single
+    main24 = "pca_int8_24x"
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 23)
+    n_main = len(singles[main24])
+    pick = torch.randint(0, n_main, (SEG_ADDS,), generator=gen, device="cuda")
+    adds = kb.docs[pick] + 0.05 * torch.randn(
+        (SEG_ADDS, kb.docs.shape[1]), generator=gen, device="cuda")
+    seg = SegmentedIndex(load_index(paths[main24], device=dev))
+    seg.add(adds)
+    first = _search_batches(seg, queries, K)[1].cpu().numpy()
+    pool = np.unique(first.ravel())
+    dead = np.random.default_rng(args.seed + 29).choice(
+        pool[pool < n_main], SEG_DEAD, replace=False).tolist()
+
+    def seg_searched(seg, tag):
+        if seg.delete(dead) != SEG_DEAD:
+            raise AssertionError(f"segmented {tag} main: deletes not taken")
+        seg.search(queries[:BATCH], K)                           # warm-up
+        vals, ids, secs = _search_batches(seg, queries, K)
+        print(f"[sharded] seg over {main24} ({tag} main): {SEG_ADDS} adds, "
+              f"{SEG_DEAD} main deletes, main probed k + #dead = "
+              f"{K + SEG_DEAD} deep: {latency(secs, n_q)}")
+        stats = seg.shard_stats()
+        t0 = time.perf_counter()
+        comp = seg.compact()
+        torch.cuda.synchronize()
+        return (vals, ids), stats, comp, time.perf_counter() - t0
+
+    seg_ref, _, comp, comp_s = seg_searched(seg, "single")
+    comp_ref = _search_batches(comp, queries, K)[:2]
+    del seg, comp
+    print(f"[sharded] single-host artifacts saved, references and twins "
+          f"searched in {time.perf_counter() - t_phase:.1f} s")
 
     reset_launch_counts()
     keep = {}
@@ -1399,83 +1438,51 @@ def phase_sharded(args, kb, exact, ivf_indexes) -> dict[str, int]:
         del back
 
     # -- a sharded build of the post recipe encodes by fused_quantize ----
-    post = IndexSpec(stages=(("CenterNorm", {}), ("PCA", {"dim": 128}),
-                             ("CenterNorm", {}), ("Int8Quantizer", {})))
-    docs = kb.docs[:SHARD_POST_DOCS]
-    single = build_index(post, docs, queries, device=dev)
-    sharded = ShardedCompressedIndex(single.pipeline,
+    sharded = ShardedCompressedIndex(post_pipeline,
                                      ShardSpec(shards=4).build_mesh(dev))
     before = launch_counts()["fused_quantize"]
     sharded.add(docs)
     encodes = launch_counts()["fused_quantize"] - before
-    same = (torch.equal(sharded.storage, single.storage),
-            *_same_bits(sharded.search(queries[:BATCH], K),
-                        single.search(queries[:BATCH], K)))
+    same = (torch.equal(sharded.storage, post_codes),
+            *_same_bits(sharded.search(queries[:BATCH], K), post_ref))
     print(f"[sharded] post recipe, {SHARD_POST_DOCS} docs over 4 shards: "
           f"fused_quantize launches {encodes}; codes, ids, score bits vs the "
           f"single-host index: {same}")
     if encodes < 1 or not all(same):
         raise AssertionError("the sharded post-recipe build differs from the "
                              "single host")
-    del single, sharded, docs
+    del sharded, docs, post_codes
 
     # -- a SegmentedIndex over the sharded 24x main ----------------------
-    name = "pca_int8_24x"
-    gen = torch.Generator(device="cuda").manual_seed(args.seed + 23)
-    n_main = len(singles[name])
-    pick = torch.randint(0, n_main, (SEG_ADDS,), generator=gen, device="cuda")
-    adds = kb.docs[pick] + 0.05 * torch.randn(
-        (SEG_ADDS, kb.docs.shape[1]), generator=gen, device="cuda")
-    segs = {"single": SegmentedIndex(load_index(paths[name], device=dev)),
-            "sharded": SegmentedIndex(load_index(
-                paths[name], shard=ShardSpec(shards=4), device=dev))}
-    for seg in segs.values():
-        seg.add(adds)
-    first = _search_batches(segs["single"], queries, K)[1].cpu().numpy()
-    pool = np.unique(first.ravel())
-    dead = np.random.default_rng(args.seed + 29).choice(
-        pool[pool < n_main], SEG_DEAD, replace=False).tolist()
-    got = {}
-    for tag, seg in segs.items():
-        if seg.delete(dead) != SEG_DEAD:
-            raise AssertionError("segmented sharded main: deletes not taken")
-        seg.search(queries[:BATCH], K)                           # warm-up
-        vals, ids, secs = _search_batches(seg, queries, K)
-        got[tag] = (vals, ids)
-        print(f"[sharded] seg over {name} ({tag} main): {SEG_ADDS} adds, "
-              f"{SEG_DEAD} main deletes, main probed k + #dead = "
-              f"{K + SEG_DEAD} deep: {latency(secs, n_q)}")
-    same = _same_bits(got["sharded"], got["single"])
-    print(f"[sharded] seg over the 1x4 sharded {name} vs over the single "
+    seg = SegmentedIndex(load_index(paths[main24], shard=ShardSpec(shards=4),
+                                    device=dev))
+    seg.add(adds)
+    got, stats, comp, comp_s = seg_searched(seg, "sharded")
+    same = _same_bits(got, seg_ref)
+    print(f"[sharded] seg over the 1x4 sharded {main24} vs over the single "
           f"host: ids {'equal' if same[0] else 'DIFFER'}, score bits "
           f"{'equal' if same[1] else 'DIFFER'}; shard_stats "
-          f"{json.dumps(segs['sharded'].shard_stats())}")
+          f"{json.dumps(stats)}")
     if not all(same):
         raise AssertionError("the segmented sharded main ranks differently "
                              "from the single host")
-    t0 = time.perf_counter()
-    comps = {tag: seg.compact() for tag, seg in segs.items()}
-    torch.cuda.synchronize()
-    comp = comps["sharded"]
     resharded = (type(comp.main) is ShardedCompressedIndex
-                 and comp.main.mesh is segs["sharded"].main.mesh
+                 and comp.main.mesh is seg.main.mesh
                  and comp.main.n_doc_shards == 4)
-    same = _same_bits(_search_batches(comp, queries, K)[:2],
-                      _search_batches(comps["single"], queries, K)[:2])
+    same = _same_bits(_search_batches(comp, queries, K)[:2], comp_ref)
     fold = ("re-sharded over the same mesh" if resharded
             else "NOT RE-SHARDED")
-    print(f"[sharded] compact() of both in {time.perf_counter() - t0:.2f} s:"
-          f" the sharded fold {fold} ({len(comp)} live); vs the single-host"
-          f" fold ids "
+    print(f"[sharded] compact() of the sharded main in {comp_s:.2f} s: the "
+          f"fold {fold} ({len(comp)} live); vs the single-host fold ids "
           f"{'equal' if same[0] else 'DIFFER'}, score bits "
           f"{'equal' if same[1] else 'DIFFER'}; shard_stats "
           f"{json.dumps(comp.shard_stats())}")
     if not (resharded and all(same)):
         raise AssertionError("compaction of the sharded main differs")
-    del segs, comps, comp, adds
+    del seg, comp, adds
 
     # -- the front door over the sharded 24x artifact --------------------
-    direct_v, direct_i, _ = ref[(name, None)]
+    direct_v, direct_i, _ = ref[(main24, None)]
     shard4 = ShardSpec(shards=4)
 
     def served_equal(svc, version, tag):
@@ -1505,11 +1512,11 @@ def phase_sharded(args, kb, exact, ivf_indexes) -> dict[str, int]:
             raise RuntimeError("injected shard-2 placement failure")
 
     with RetrievalService(max_batch=BATCH) as svc:
-        svc.register("kb", artifact=paths[name], shard=shard4, device=dev)
+        svc.register("kb", artifact=paths[main24], shard=shard4, device=dev)
         served_equal(svc, 1, "registered with shard=ShardSpec(shards=4)")
         placement.SHARD_PLACEMENT_HOOK = fail_shard_2
         try:
-            svc.stage("kb", artifact=paths[name], shard=shard4, device=dev)
+            svc.stage("kb", artifact=paths[main24], shard=shard4, device=dev)
             failed = False
         except RuntimeError:
             failed = True
@@ -1524,12 +1531,13 @@ def phase_sharded(args, kb, exact, ivf_indexes) -> dict[str, int]:
               f"staged {st['staged']}, versions {sorted(st['versions'])})")
         if not (failed and clean):
             raise AssertionError("a failed sharded stage changed the registry")
-        vid = svc.stage("kb", artifact=paths[name], shard=shard4,
+        vid = svc.stage("kb", artifact=paths[main24], shard=shard4,
                         device=dev)
         svc.promote("kb")
         served_equal(svc, vid, "staged and promoted")
     counts = launch_counts()
-    print(f"[sharded] launches over the sharded path: {counts}")
+    print(f"[sharded] launches over the sharded path (its single-host "
+          f"twins ran before the count): {counts}")
     for kern in ("int8_ip", "binary_ip", "topk_blocks", "fused_ivf_topk",
                  "fused_quantize"):
         if counts[kern] < 1:

@@ -856,13 +856,9 @@ def _shard_loaded(idx, shard: ShardSpec, mesh=None):
         out = ShardedIVFIndex(idx, mesh, doc_axis=shard.doc_axis,
                               query_axis=shard.effective_query_axis)
     elif isinstance(idx, CompressedIndex):
-        out = ShardedCompressedIndex(
-            idx.pipeline, mesh, sim=idx.sim, backend=idx.backend,
-            doc_axis=shard.doc_axis, query_axis=shard.effective_query_axis)
-        out.scorer.load_extra_state(idx.scorer.extra_state())
-        out._storage_host = idx.storage.to(out.device)
-        out._n_docs = len(idx)
-        out._dim = idx._dim
+        out = ShardedCompressedIndex.from_index(
+            idx, mesh, doc_axis=shard.doc_axis,
+            query_axis=shard.effective_query_axis)
     else:
         raise TypeError(
             f"shard= cannot wrap a {type(idx).__name__} — sharding covers "

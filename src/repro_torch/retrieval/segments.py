@@ -603,14 +603,9 @@ class SegmentedIndex:
                                   doc_axis=main.doc_axes,
                                   query_axis=main.query_axis)
         else:
-            out = ShardedCompressedIndex(
-                new_main.pipeline, main.mesh, sim=new_main.sim,
-                backend=main.backend, doc_axis=main.doc_axes,
+            out = ShardedCompressedIndex.from_index(
+                new_main, main.mesh, doc_axis=main.doc_axes,
                 query_axis=main.query_axis)
-            out.scorer.load_extra_state(new_main.scorer.extra_state())
-            out._storage_host = new_main.storage
-            out._n_docs = len(new_main)
-            out._dim = new_main._dim
         out.spec = getattr(new_main, "spec", None)
         return out
 

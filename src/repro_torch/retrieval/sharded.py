@@ -279,6 +279,23 @@ class ShardedCompressedIndex(_MeshAxes):
         pipeline.fit(docs, queries_sample, rng=rng)
         return idx.add(docs)
 
+    @classmethod
+    def from_index(cls, idx, mesh: Mesh, *, doc_axis: AxisName = "model",
+                   query_axis: Optional[AxisName] = None
+                   ) -> "ShardedCompressedIndex":
+        """Wrap a built single-host
+        :class:`~repro_torch.retrieval.index.CompressedIndex` over
+        ``mesh``: its pipeline, scorer state and encoded rows as they are
+        (the rows on the lead device, split over the shards at
+        placement), so rankings equal ``idx``'s."""
+        out = cls(idx.pipeline, mesh, sim=idx.sim, backend=idx.backend,
+                  doc_axis=doc_axis, query_axis=query_axis)
+        out.scorer.load_extra_state(idx.scorer.extra_state())
+        out._storage_host = idx.storage.to(out.device)
+        out._n_docs = len(idx)
+        out._dim = idx._dim
+        return out
+
     @property
     def storage(self) -> Optional[torch.Tensor]:
         """Unsharded encoded rows (single-host view for persistence and
@@ -461,8 +478,8 @@ class ShardedIVFIndex(_MeshAxes):
     device with its own ``route``; each shard scores only the probed lists
     it owns — where the single-host index takes the fused kernel, as a
     list-major layout of its owned lists plus one empty list, searched by
-    one ``fused_ivf_topk`` launch, an unowned probe pointing at the empty
-    list; elsewhere by the single-host streaming path over its rows — and
+    one ``fused_ivf_topk`` launch, an unowned probe at −1 (skipped);
+    elsewhere by the single-host streaming path over its rows — and
     the shards' top-k merge by ``(score desc, id asc)``.  Wraps a fitted
     :class:`~repro_torch.retrieval.ivf.IVFIndex` (centroids and lists as
     they are), so rankings equal the single-host index's.
@@ -511,7 +528,8 @@ class ShardedIVFIndex(_MeshAxes):
         """One shard's tensors, on the host.  Fused: the (n_owned + 1, L,
         w) list-major storage of its owned lists (L their longest) with
         the empty list last, their global ids (−1 pad), and the (nlist,)
-        global → local list map (unowned → the empty list).  Streaming:
+        global → local list map (unowned → −1: skipped by the kernel, the
+        empty last list in its plain version).  Streaming:
         its (nlist, max_len) local row table, rows and global ids."""
         if not self._fused:
             return [torch.from_numpy(loc), torch.from_numpy(rows),
@@ -525,7 +543,7 @@ class ShardedIVFIndex(_MeshAxes):
         list_storage = rows[np.where(valid, table, 0)]
         list_storage[~valid] = 0
         list_ids = np.where(valid, gids[np.where(valid, table, 0)], -1)
-        g2l = np.full(loc.shape[0], len(own), np.int32)
+        g2l = np.full(loc.shape[0], -1, np.int32)
         g2l[own] = np.arange(len(own), dtype=np.int32)
         return [torch.from_numpy(list_storage),
                 torch.from_numpy(list_ids.astype(np.int32)),
@@ -700,11 +718,9 @@ class ShardedIVFIndex(_MeshAxes):
         def local(r, s, rows):
             list_storage, list_ids, g2l = self._shards[r][s]
             dev = list_storage.device
-            # every slot stays, an unowned one on the empty list: on an
-            # H100 at 1M docs the empty list took 0.32–0.47 of a shard's
-            # ivf_score_lists at nprobe 64 (less than the owned lists),
-            # and cutting the table to the owned slots costs a sort, a
-            # gather and a host sync a shard (PERF.md)
+            # an unowned probe maps to −1, which the kernel skips (its
+            # plain version reads it as the empty last list): no sort,
+            # gather or host sync a shard to cut the table
             probes = g2l[probe[rows].to(dev).long()]
             base = base_q[rows].to(dev)[:, None].expand(probes.shape)
             return fused_kernel.fused_ivf_topk(

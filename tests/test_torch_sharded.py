@@ -503,6 +503,52 @@ def test_sharded_exact_surface(data):
                  single.search(data["queries"], K))
 
 
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("tail", sorted(TAILS))
+def test_from_index_equals_single_host(data, tail, mesh):
+    """``ShardedCompressedIndex.from_index`` wraps a built single-host
+    index as it stands (pipeline, scorer state, rows) and ranks as it."""
+    single = p_api.build_index(_spec(tail, "kernel"), data["docs"],
+                               data["queries"], device=CPU)
+    spec = MESHES[mesh]
+    sharded = ShardedCompressedIndex.from_index(
+        single, spec.build_mesh(CPU), query_axis=spec.effective_query_axis)
+    assert len(sharded) == N_DOCS and sharded.backend == single.backend
+    assert torch.equal(sharded.storage, single.storage)
+    for k in (K, 300):
+        _assert_bits(sharded.search(data["queries"], k),
+                     single.search(data["queries"], k))
+
+
+def test_fused_shard_layout_skips_unowned_probes(data):
+    """Each fused shard keeps its owned lists and one empty list last; an
+    unowned list maps to −1, which the kernel skips and its plain version
+    reads as the empty last list — the same result as pointing the slot
+    at the empty list."""
+    from repro_torch.kernels.ivf_fused.kernel import fused_ivf_topk
+    ivf = IVFIndex.build(data["docs"], data["queries"], CompressionPipeline(
+        [CenterNorm(), PCA(32), Int8Quantizer()]), nlist=12, nprobe=6,
+        kmeans_iters=8, backend="kernel", device=CPU)
+    sharded = ShardedIVFIndex(ivf, ShardSpec(shards=4).build_mesh(CPU))
+    assert sharded._fused
+    qe, base_q, probe, _ = sharded.fused_inputs(
+        data["queries"], 12, sharded.scorer.params())
+    for s, (list_storage, list_ids, g2l) in enumerate(sharded._shards[0]):
+        owned = sharded.list_owner == s
+        empty = list_storage.shape[0] - 1
+        assert empty == int(owned.sum())
+        assert (list_ids[empty] == -1).all()
+        np.testing.assert_array_equal(_np(g2l)[owned], np.arange(empty))
+        assert (_np(g2l)[~owned] == -1).all()
+        table = g2l[probe.long()]
+        base = base_q[:, None].expand(table.shape).float().contiguous()
+        to_empty = torch.where(table < 0, empty, table).to(torch.int32)
+        _assert_bits(fused_ivf_topk(table, qe, list_storage, list_ids, base,
+                                    K, "int8"),
+                     fused_ivf_topk(to_empty, qe, list_storage, list_ids,
+                                    base, K, "int8"))
+
+
 # ---------------------------------------------------------------------------
 # a SegmentedIndex over a sharded main
 # ---------------------------------------------------------------------------
