@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's exact, IVF, sharded, tiered, served and
-mutable paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's exact, IVF, sharded, tiered, served,
+off-path and mutable paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-docs 1000000] [--n-queries 2048] [--seed 0]
 
@@ -93,7 +93,22 @@ Phases, each printed as it runs:
    equal to resident), and a RetrievalService with the artifact
    registered at enc/4 and then promoted to "all" (answers equal direct
    search bit for bit; p50 at the front door; tier gauges).
-8. mutable — a second KB of 1M + 131,072 docs: the first 1M are the
+8. off-path — on the main KB: the 12 Table-2 methods the port added
+   (random projections, dimension drops, the six autoencoders, similarity
+   and contrastive learning) at dim 128 with pre and post CenterNorm, each
+   fitted on F = the first 65,536 docs with the 2,048 queries as the query
+   sample (greedy dimension drop on all docs: its scorer indexes the KB's
+   relevance) with a cuda generator seeded 0, every doc encoded into a
+   float index and the queries searched exactly in batches of 256 at k=10
+   (fit s, encode s, p50, R-precision and its share of float; the AEs'
+   loss_history); the AE + int8 (24x) and Gaussian-256 + 1-bit (96x)
+   recipes fitted on F, their kernel search held against the plain
+   versions of int8_ip / binary_ip and the top-k, saved and loaded (ids
+   and score bits equal), p50 and qps; each fitted transform applied on
+   cuda and on the CPU to 4,096 docs from the same state (equal for the
+   dimension drops, else within 1e-5·max).  Launch counts set to 0
+   before and read after.
+9. mutable — a second KB of 1M + 131,072 docs: the first 1M are the
    main, the rest arrive as 8 adds of 16,384.  ``seg_24x_post`` (the
    paper's pre+post-normalized 24x recipe, encoded by fused_quantize on
    the build and every add; 100 main and 100 delta deletes) and
@@ -106,7 +121,7 @@ Phases, each printed as it runs:
    ids equal), through ``compact()`` and a v2 save/load; the fused encode
    against the staged plain encode on the card; R-precision's share of
    float; one batch per index traced.
-9. the last two lines: ``{"kernels": [...]}`` and the device line.
+10. the last two lines: ``{"kernels": [...]}`` and the device line.
 
 Any failure raises before the last line, and the exit code is non-zero.
 """
@@ -1816,6 +1831,182 @@ def phase_tiered(args, kb, ivf_indexes) -> dict[str, int]:
     return counts
 
 
+#: the off-path phase: the fit set F (the KB's first docs, with the 2,048
+#: queries as the query sample), the reduced width, and the Table-2 rows
+#: the port added, in repro's METHODS order
+OFFPATH_FIT_DOCS, OFFPATH_DIM, OFFPATH_XDEV_DOCS = 65_536, 128, 4_096
+OFFPATH_METHODS = ("gaussian_projection", "sparse_projection", "dim_drop",
+                   "greedy_dim_drop", "ae_linear", "ae_full", "ae_shallow",
+                   "ae_linear_l1", "ae_full_l1", "ae_shallow_l1",
+                   "distance_learning", "contrastive")
+
+
+def plain_search(index, queries, k):
+    """``index``'s kernel-numerics search with each kernel's plain version
+    (``int8_ip_ref`` or ``binary_ip_ref``, then the plain two-stage
+    top-k): the reference its kernel search is held to on the card."""
+    from repro_torch.kernels.binary_ip import ops as binary_ops
+    from repro_torch.retrieval.scorers import Int8Scorer
+
+    scorer = index.scorer
+    q = scorer.encode_queries(index.encode_queries(queries))
+    if isinstance(scorer, Int8Scorer):
+        p = scorer.params()
+        scores = int8_ip_ref((q * p["scale"]).to(torch.bfloat16),
+                             index.storage, q @ p["zero"])
+    else:
+        scores = binary_ops.binary_ip_scores(
+            q, index.storage, scorer.dim, offset=scorer.quantizer.offset,
+            use_kernel=False)
+    return streaming_topk(scores, k, use_kernel=False)
+
+
+def check_cross_device(name, t, x) -> str:
+    """One fitted transform applied on the card and, from the same state,
+    on the CPU: exact for the dimension drops, else within 1e-5·max|y|
+    (f32 GEMM order)."""
+    from repro_torch.core.registry import build_transform, transform_spec
+
+    sd = t.state_dict()
+    on_cpu = build_transform(*transform_spec(t)).load_state(
+        {"state": {k: v.cpu().numpy() for k, v in sd["state"].items()},
+         "fitted": sd["fitted"]}, torch.device("cpu"))
+    got, want = t(x).cpu(), on_cpu(x.cpu())
+    err = float((got - want).abs().max())
+    exact = "DimensionDrop" in type(t).__name__
+    ok = torch.equal(got, want) if exact else \
+        err <= 1e-5 * float(want.abs().max())
+    if not ok:
+        raise AssertionError(f"{name}: {type(t).__name__} on cuda differs "
+                             f"from the CPU by {err:.3g}")
+    return f"{name} {'equal' if exact else f'{err:.2g}'}"
+
+
+def _loss_history(t) -> str:
+    from repro_torch.core import Autoencoder
+
+    if not isinstance(t, Autoencoder):
+        return ""
+    return f", loss_history {[round(v, 6) for v in t.loss_history]}"
+
+
+def phase_offpath(args, kb, rp_float) -> dict[str, int]:
+    """The off-path transforms on the main KB: the 12 Table-2 methods the
+    port added (fit on F, all docs encoded into a float 128-d index,
+    searched exactly), the AE + int8 and Gaussian + 1-bit recipes through
+    ``int8_ip`` / ``binary_ip`` (held to the plain versions, saved and
+    loaded bit-identically), and each new transform on cuda against the
+    CPU.  Returns the launch counts of the phase."""
+    from repro_torch.core import (PAPER_L1, Autoencoder, CenterNorm,
+                                  CompressionPipeline, GaussianProjection,
+                                  Int8Quantizer, OneBitQuantizer,
+                                  build_method)
+    from repro_torch.retrieval import (CompressedIndex, load_index,
+                                       make_dim_drop_scorer,
+                                       r_precision_from_ids, save_index)
+
+    t_phase = time.perf_counter()
+    fit_docs, queries = kb.docs[:OFFPATH_FIT_DOCS], kb.queries
+    x_xdev = kb.docs[:OFFPATH_XDEV_DOCS]
+    greedy_scorer = make_dim_drop_scorer(kb.relevant, n_queries=256,
+                                         n_docs=8192)
+    reset_launch_counts()
+
+    def fit(pipe, docs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.fit(docs, queries,
+                 rng=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def encode(pipe):
+        t0 = time.perf_counter()
+        index = CompressedIndex(pipe, device="cuda").add(kb.docs)
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t0
+
+    xdev, traced = [], {}
+    for name in OFFPATH_METHODS:
+        pipe = build_method(name, OFFPATH_DIM, greedy_scorer=greedy_scorer)
+        # greedy's scorer indexes kb.relevant, so it sees the whole KB
+        fit_s = fit(pipe, kb.docs if name == "greedy_dim_drop" else fit_docs)
+        index, enc_s = encode(pipe)
+        vals, ids, secs = _search_batches(index, queries, K)
+        _checked(name, vals, ids, queries.shape[0], args.n_docs)
+        rp = r_precision_from_ids(ids, kb.relevant)
+        core = pipe.transforms[1]
+        print(f"[offpath] {name}: fit {fit_s:.2f} s, encode {enc_s:.2f} s "
+              f"({len(index)} docs, {index.nbytes / len(index):g} B/doc), "
+              f"{latency(secs, queries.shape[0])}, R-precision {rp:.4f} "
+              f"({rp / rp_float:.4f} of float){_loss_history(core)}")
+        xdev.append((name, core, pipe.transforms[0](x_xdev, "docs")))
+        if not traced:                 # one float 128-d index traced
+            traced[name] = index
+        del index, vals, ids
+    torch.cuda.empty_cache()
+
+    recipes = {
+        "ae_int8_24x": lambda: [
+            CenterNorm(), Autoencoder(variant="shallow_decoder",
+                                      bottleneck=OFFPATH_DIM, l1=PAPER_L1),
+            CenterNorm(), Int8Quantizer()],
+        "gauss_onebit_96x": lambda: [
+            CenterNorm(), GaussianProjection(256), CenterNorm(),
+            OneBitQuantizer(offset=0.5)],
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, stages in recipes.items():
+            pipe = CompressionPipeline(stages())
+            fit_s = fit(pipe, fit_docs)
+            index, enc_s = encode(pipe)
+            path = os.path.join(tmp, f"{name}.npz")
+            save_index(index, path)
+            loaded = load_index(path, device="cuda")
+            vals, ids, _ = _search_batches(index, queries, K)
+            lv, li, secs = _search_batches(loaded, queries, K)
+            same = _same_bits((lv, li), (vals, ids))
+            _checked(name, lv, li, queries.shape[0], args.n_docs)
+            rp = r_precision_from_ids(li, kb.relevant)
+            print(f"[offpath] {name}: fit {fit_s:.2f} s, encode {enc_s:.2f} "
+                  f"s, {768 * 4 * len(loaded) / loaded.nbytes:.1f}x vs f32, "
+                  f"saved+loaded ids / score bits equal {same}; loaded: "
+                  f"{latency(secs, queries.shape[0])}, R-precision "
+                  f"{rp:.4f} ({rp / rp_float:.4f} of float)"
+                  f"{_loss_history(pipe.transforms[1])}")
+            if not all(same):
+                raise AssertionError(f"{name}: the loaded artifact ranks "
+                                     "differently from the built index")
+            traced[name] = loaded
+            del index, loaded
+    counts = launch_counts()
+    for kern in ("int8_ip", "binary_ip", "topk_blocks"):
+        if counts[kern] < 1:
+            raise AssertionError(f"{kern} never launched on the off-path "
+                                 "phase")
+
+    # after the count: each recipe's kernel search against the plain
+    # versions of its kernels
+    for name in recipes:
+        index = traced[name]
+        ok, err = ranking_agrees(index.search(queries[:BATCH], K),
+                                 plain_search(index, queries[:BATCH], K),
+                                 exact=index.scorer.name == "onebit")
+        print(f"[offpath] {name}: kernel search vs the plain versions: "
+              f"{'ok' if ok else 'MISMATCH'} (max_abs_err {err:.3g})")
+        if not ok:
+            raise AssertionError(f"{name}: kernel search disagrees with "
+                                 "its plain versions")
+
+    print(f"[offpath] cuda vs cpu on {OFFPATH_XDEV_DOCS} docs: " + "; ".join(
+        check_cross_device(name, t, x) for name, t, x in xdev))
+    print(f"[offpath] launches {counts}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    profile_batches(traced, queries)           # after the count
+    torch.cuda.empty_cache()
+    return counts
+
+
 def latency(secs, n_queries: int) -> str:
     ms = sorted(x * 1e3 for x in secs)
     p99 = ms[min(len(ms) - 1, round(0.99 * (len(ms) - 1)))]
@@ -2136,21 +2327,27 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         tiered_counts = phase_tiered(args, kb, ivf_indexes)
         lap("tiered")
-        del kb, ivf_indexes
+        del ivf_indexes
+        torch.cuda.empty_cache()
+        offpath_counts = phase_offpath(args, kb, rp_float)
+        lap("offpath")
+        del kb
         torch.cuda.empty_cache()
         mutable_counts = phase_mutable(args, kb_on_card(mutable_kb,
                                                         "mutable", args))
         lap("mutable")
     # each kernel's launches on the path that drives it (the IVF kernel's
     # on the resident and the tiered IVF paths together), plus the sharded
-    # path's
+    # and off-path phases
     ivf_counts = {n: ivf_counts[n] + tiered_counts[n] for n in ivf_counts}
     path_counts = {"fused_ivf_topk": ivf_counts,
                    "fused_quantize": mutable_counts}
     for rec in kernels:
         rec["launches"] = (path_counts.get(rec["name"], counts)[rec["name"]]
-                           + sharded_counts[rec["name"]])
+                           + sharded_counts[rec["name"]]
+                           + offpath_counts[rec["name"]])
         rec["launches_sharded"] = sharded_counts[rec["name"]]
+        rec["launches_offpath"] = offpath_counts[rec["name"]]
     print(f"[done] {time.perf_counter() - t_start:.1f} s ("
           + ", ".join(f"{n} {t} s" for n, t in times.items())
           + f"); card {smi}")

@@ -7,13 +7,18 @@ format so indexes move between the two packages.
 Layers
 ------
 - ``repro_torch.core``      : compression transforms and pipelines
-                              (CenterNorm → PCA → int8 / 1-bit quantizers).
+                              (CenterNorm → PCA, random projections,
+                              dimension drops, autoencoders, distance and
+                              contrastive learning → int8 / 1-bit
+                              quantizers), every Table-2 method.
 - ``repro_torch.retrieval`` : exact top-k search over float, fp16, int8 and
                               1-bit storage; R-Precision; ``.npz`` artifacts.
 - ``repro_torch.kernels``   : hand-written CUDA C++ kernels for Hopper
                               (``sm_90a``), each beside its plain PyTorch
                               version.
 - ``repro_torch.data``      : the deterministic synthetic DPR-like corpus.
+- ``repro_torch.train``     : the functional optimizer library (AdamW, SGD,
+                              int8-moment Adam, schedules).
 
 Device contract: entry points take ``device=None``, which means ``"cuda"``;
 without a CUDA device they raise unless the caller passes ``device="cpu"``.

@@ -1,49 +1,62 @@
-"""Named factory for the paper's compression configurations.
+"""Named factory for every compression configuration in the paper.
 
-Counterpart of ``repro.core.registry`` for the rows on the port's path so
-far.  ``build_method(name, dim=..)`` returns a ready-to-fit
-:class:`~repro_torch.core.pipeline.CompressionPipeline`; the transform
-registry rebuilds pipelines from the ``(class name, init_config())``
-descriptors that index artifacts record.  A name ``repro`` knows but the
-port does not have yet raises ``NotImplementedError`` naming the later
-slice of the port it waits for.
+Counterpart of ``repro.core.registry``.  ``build_method(name, dim=..)``
+returns a ready-to-fit :class:`~repro_torch.core.pipeline.
+CompressionPipeline`; names mirror the rows of paper Table 2.  The
+transform registry rebuilds pipelines from the ``(class name,
+init_config())`` descriptors that index artifacts record.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.core.autoencoder import (PAPER_L1, Autoencoder,
+                                          AutoencoderConfig)
+from repro_torch.core.distance_learning import (
+    ContrastiveProjection, SimilarityPreservingProjection)
 from repro_torch.core.pca import PCA
 from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.preprocess import (Center, CenterNorm, Normalize,
                                          Transform, ZScore)
 from repro_torch.core.quantization import (FloatCast, Int8Quantizer,
                                            OneBitQuantizer)
+from repro_torch.core.random_projection import (DimensionDrop,
+                                                GaussianProjection,
+                                                GreedyDimensionDrop,
+                                                SparseProjection)
 from repro_torch.core.rotation import LearnedRotation
 
 METHODS = (
-    "original", "pca", "pca_scaled",
+    "original",
+    "gaussian_projection", "sparse_projection",
+    "dim_drop", "greedy_dim_drop",
+    "pca", "pca_scaled",
+    "ae_linear", "ae_full", "ae_shallow",
+    "ae_linear_l1", "ae_full_l1", "ae_shallow_l1",
     "fp16", "int8", "onebit", "onebit_offset0",
-    "pca_int8", "pca_onebit", "pca_rot_onebit",
+    "pca_onebit", "pca_int8", "pca_rot_onebit",
+    "distance_learning", "contrastive",
 )
 
-_OFF_PATH_SLICE = "slice 6 of the port (off-path transforms)"
-
-#: names ``repro`` has and the port does not yet → the slice that adds them
-_LATER_METHODS = {m: _OFF_PATH_SLICE for m in (
-    "gaussian_projection", "sparse_projection", "dim_drop",
-    "greedy_dim_drop", "ae_linear", "ae_full", "ae_shallow",
-    "ae_linear_l1", "ae_full_l1", "ae_shallow_l1",
-    "distance_learning", "contrastive")}
-_LATER_TRANSFORMS = {t: _OFF_PATH_SLICE for t in (
-    "DimensionDrop", "GreedyDimensionDrop", "GaussianProjection",
-    "SparseProjection", "Autoencoder", "SimilarityPreservingProjection",
-    "ContrastiveProjection")}
+_AE_VARIANTS = {"ae_linear": "linear", "ae_full": "full",
+                "ae_shallow": "shallow_decoder"}
 
 
-def _core_stages(name: str, dim: int) -> list[Transform]:
+def _core_stages(name: str, dim: int, *, greedy_scorer=None,
+                 ae_epochs: int = 5) -> list[Transform]:
+    if name.startswith("ae_") and name.replace("_l1", "") in _AE_VARIANTS:
+        l1 = PAPER_L1 if name.endswith("_l1") else 0.0
+        return [Autoencoder(AutoencoderConfig(
+            variant=_AE_VARIANTS[name.replace("_l1", "")], bottleneck=dim,
+            l1=l1, epochs=ae_epochs))]
     table = {
         "original": lambda: [],
+        "gaussian_projection": lambda: [GaussianProjection(dim)],
+        "sparse_projection": lambda: [SparseProjection(dim)],
+        "dim_drop": lambda: [DimensionDrop(dim)],
+        "greedy_dim_drop": lambda: [GreedyDimensionDrop(
+            dim, scorer=greedy_scorer)],
         "pca": lambda: [PCA(dim)],
         "pca_scaled": lambda: [PCA(dim, scale_components="paper")],
         "fp16": lambda: [FloatCast("float16")],
@@ -58,27 +71,31 @@ def _core_stages(name: str, dim: int) -> list[Transform]:
         # re-aims the sign grid after PCA (free at search time)
         "pca_rot_onebit": lambda: [PCA(dim), LearnedRotation(),
                                    OneBitQuantizer(offset=0.5)],
+        "distance_learning": lambda: [SimilarityPreservingProjection(
+            dim=dim)],
+        "contrastive": lambda: [ContrastiveProjection(dim=dim)],
     }
-    if name in table:
-        return table[name]()
-    if name in _LATER_METHODS:
-        raise NotImplementedError(
-            f"compression method {name!r} is not ported yet: it waits for "
-            f"{_LATER_METHODS[name]}")
-    raise ValueError(f"unknown compression method {name!r}; "
-                     f"known: {METHODS}")
+    if name not in table:
+        raise ValueError(f"unknown compression method {name!r}; "
+                         f"known: {METHODS}")
+    return table[name]()
 
 
 def build_method(name: str, dim: int = 128, *, pre: bool = True,
-                 post: bool = True) -> CompressionPipeline:
+                 post: bool = True, greedy_scorer=None,
+                 ae_epochs: int = 5) -> CompressionPipeline:
     """Build a pipeline for a named Table-2 row.
 
     ``pre``/``post`` toggle the center+normalize wrapping.  ``post=True``
     lands after a trailing quantizer and makes the storage float; pass
     ``post=False`` to keep quantized storage on the kernel path.
+    ``greedy_scorer`` is ``greedy_dim_drop``'s scorer (see
+    :func:`repro_torch.retrieval.rprecision.make_dim_drop_scorer`);
+    ``ae_epochs`` the autoencoders' epochs.
     """
     stages: list[Transform] = [CenterNorm()] if pre else []
-    core = _core_stages(name, dim)
+    core = _core_stages(name, dim, greedy_scorer=greedy_scorer,
+                        ae_epochs=ae_epochs)
     stages.extend(core)
     if post and core:
         stages.append(CenterNorm())
@@ -102,8 +119,11 @@ def register_transform(cls: type) -> type:
     return cls
 
 
-for _cls in (Center, CenterNorm, Normalize, ZScore, PCA, LearnedRotation,
-             FloatCast, Int8Quantizer, OneBitQuantizer):
+for _cls in (Center, CenterNorm, Normalize, ZScore, PCA, FloatCast,
+             Int8Quantizer, OneBitQuantizer, DimensionDrop,
+             GreedyDimensionDrop, GaussianProjection, SparseProjection,
+             Autoencoder, SimilarityPreservingProjection,
+             ContrastiveProjection, LearnedRotation):
     register_transform(_cls)
 
 
@@ -114,15 +134,11 @@ def transform_spec(t: Transform) -> tuple[str, dict]:
 
 def build_transform(name: str, config: Optional[dict] = None) -> Transform:
     """Rebuild an (unfitted) transform from its :func:`transform_spec`."""
-    if name in TRANSFORMS:
-        return TRANSFORMS[name](**(config or {}))
-    if name in _LATER_TRANSFORMS:
-        raise NotImplementedError(
-            f"transform {name!r} is not ported yet: it waits for "
-            f"{_LATER_TRANSFORMS[name]}")
-    raise KeyError(f"unknown transform {name!r}; registered: "
-                   f"{sorted(TRANSFORMS)} — register_transform() custom "
-                   "stages before loading artifacts that use them")
+    if name not in TRANSFORMS:
+        raise KeyError(f"unknown transform {name!r}; registered: "
+                       f"{sorted(TRANSFORMS)} — register_transform() custom "
+                       "stages before loading artifacts that use them")
+    return TRANSFORMS[name](**(config or {}))
 
 
 def pipeline_spec(pipeline: CompressionPipeline) -> list[tuple[str, dict]]:

@@ -19,7 +19,8 @@ from repro_torch.retrieval.api import (IndexSpec, ShardSpec, build_index,
                                        save_index)
 from repro_torch.retrieval.index import CompressedIndex, DenseIndex
 from repro_torch.retrieval.ivf import IVFFlatIndex, IVFIndex
-from repro_torch.retrieval.rprecision import (r_precision,
+from repro_torch.retrieval.rprecision import (make_dim_drop_scorer,
+                                              r_precision,
                                               r_precision_from_ids,
                                               recall_at_k,
                                               retrieved_relevant_counts)
@@ -41,7 +42,8 @@ __all__ = [
     "ShardedCompressedIndex", "ShardedIVFIndex", "partition_ivf_lists",
     "Scorer", "get_scorer", "register_scorer",
     "scorer_for_pipeline", "scorer_names",
-    "r_precision", "r_precision_from_ids", "recall_at_k",
+    "make_dim_drop_scorer", "r_precision", "r_precision_from_ids",
+    "recall_at_k",
     "retrieved_relevant_counts",
     "masked_topk_by_id", "resolve_k", "topk_score_then_id", "topk_search",
 ]

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 from repro.core import pca as repro_pca  # noqa: E402
 from repro.core import preprocess as repro_pre  # noqa: E402
 from repro.core import quantization as repro_q  # noqa: E402
+from repro.core import registry as repro_registry  # noqa: E402
 from repro.core.registry import build_method as repro_build_method  # noqa: E402
 from repro.core.registry import method_compression_ratio as repro_ratio  # noqa: E402
 from repro_torch.core import pca as port_pca  # noqa: E402
@@ -172,7 +173,9 @@ def test_pca_max_fit_samples_draws_with_a_generator(data):
 
 @pytest.mark.parametrize("method,dim", [
     ("pca_int8", 128), ("pca_onebit", 245), ("fp16", 128), ("int8", 128),
-    ("onebit", 128), ("pca", 64), ("original", 128)])
+    ("onebit", 128), ("pca", 64), ("original", 128),
+    ("gaussian_projection", 128), ("greedy_dim_drop", 64), ("ae_full_l1", 128),
+    ("contrastive", 128)])
 def test_compression_ratio_equal(method, dim):
     assert port_registry.method_compression_ratio(method, dim) == \
         repro_ratio(method, dim)
@@ -187,18 +190,17 @@ def test_build_method_stage_names_match(method, post):
         (type(t).__name__, t.init_config()) for t in repro.transforms]
 
 
-@pytest.mark.parametrize("name", ["sparse_projection", "ae_linear",
-                                  "gaussian_projection", "contrastive"])
-def test_later_methods_raise_naming_their_slice(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        port_registry.build_method(name)
+def test_methods_and_transforms_equal_repro():
+    assert port_registry.METHODS == repro_registry.METHODS
+    assert sorted(port_registry.TRANSFORMS) == \
+        sorted(repro_registry.TRANSFORMS)
 
 
-def test_later_transforms_raise_naming_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        port_registry.build_transform("Autoencoder")
+def test_unknown_names_raise():
     with pytest.raises(KeyError):
         port_registry.build_transform("NoSuchStage")
+    with pytest.raises(ValueError, match="unknown compression method"):
+        port_registry.build_method("no_such_method")
 
 
 def test_pipeline_state_dict_round_trip(data):
