@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port's exact, IVF, sharded, tiered, served,
-off-path and mutable paths on one NVIDIA GPU.
+off-path and mutable paths, and its model path, on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-docs 1000000] [--n-queries 2048] [--seed 0]
 
@@ -121,7 +121,39 @@ Phases, each printed as it runs:
    ids equal), through ``compact()`` and a v2 save/load; the fused encode
    against the staged plain encode on the card; R-precision's share of
    float; one batch per index traced.
-10. the last two lines: ``{"kernels": [...]}`` and the device line.
+10. models — the two-tower retriever of examples/train_retriever.py at
+   its "100m" size (embed 256, towers 1024-512-256, 8 + 8 features, vocab
+   150,000 each; its world of 64 clusters and 10,000 users with 1,000,000
+   items, batches drawn on the card) trained 300 steps at batch 8,192
+   with adamw (cosine 3e-3, warmup 20, weight decay 1e-4, clip 1.0):
+   once uninterrupted, once with an async checkpoint every 100 steps and
+   a SIGTERM at step 150 (PreemptionHandler: a blocking checkpoint,
+   restored into a fresh state bit for bit, resumed to 300, the final
+   state bit for bit the uninterrupted one's); ms a step, examples/s and
+   the loss every 50 steps.  The frozen item tower embeds every item,
+   and 2,048 users are searched at k=10 in batches of 256, exactly
+   (float) and through [CenterNorm, PCA(128), CenterNorm, Int8Quantizer]
+   (one fused_quantize encode, int8_ip + topk_blocks): cluster
+   precision@10 of both and its share, recall@10 of the float top-10
+   (held to a floor: the world saturates cluster precision), the
+   compression ratio, p50, qps, encode s; the launch counts set to 0
+   before and read after, then the kernel path held against the plain
+   versions.  FULL configs: the
+   two-tower's 15.4 GB of tables initialised on the card and its serving
+   (512, 262,144) and candidate (1 × 1M, top-100) forwards; FM, DIN and
+   DCN-v2 3 train steps at train_batch and their forwards at serve_p99,
+   serve_bulk and retrieval_cand; SchNet 3 train steps at each GNN shape;
+   a shape is skipped, and printed with the bytes, only where an exact
+   lower bound on what its step holds at once exceeds the free memory
+   (the two-tower's full-vocab training, ogb_products).  Then each model
+   at its REDUCED config, cuda against the CPU from the same parameters:
+   outputs at the bf16 bar, losses within 1e-3 relative except SchNet's
+   graph task, whose loss takes the bar its per-node outputs' bars imply
+   (a mean of 4 squared sums of bf16 node outputs), and each device's
+   bf16 loss within 1e-2 relative of the f64 evaluation of the same
+   function; that line also gives both losses with the segment sums in
+   f32.
+11. the last two lines: ``{"kernels": [...]}`` and the device line.
 
 Any failure raises before the last line, and the exit code is non-zero.
 """
@@ -131,6 +163,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -2292,6 +2325,667 @@ def phase_mutable(args, kb) -> dict[str, int]:
     return counts
 
 
+#: the [models] phase: the two-tower retriever of examples/train_retriever.py
+#: at its "100m" size (the published two-tower-retrieval widths, vocab cut
+#: to 150,000 rows a table), its world (64 clusters, 10,000 users) with
+#: 1,000,000 items, trained 300 steps at batch 8,192 with a preemption at
+#: step 150, then its item tower's embeddings of every item indexed
+N_CLUSTERS, RETRIEVER_USERS, RETRIEVER_ITEMS = 64, 10_000, 1_000_000
+RETRIEVER_STEPS, RETRIEVER_BATCH, RETRIEVER_EVAL_USERS = 300, 8_192, 2_048
+RETRIEVER_CKPT_EVERY, RETRIEVER_PREEMPT_AT, RETRIEVER_LOG_EVERY = 100, 150, 50
+#: the compressed index's recall@10 of the float top-10 must reach this: two
+#: thirds of the 0.1522 an H100 gave (cluster precision saturates at 1.0 in
+#: this world, so it cannot show a degraded index)
+RETRIEVER_RECALL_FLOOR = 0.10
+#: train steps and forward repeats timed at each FULL-config shape
+FULL_TRAIN_STEPS, FULL_FWD_REPS = 3, 3
+#: the card vs the CPU, the CPU tests' bars (tests/test_torch_models_*):
+#: losses within 1e-3 relative, outputs at rtol 1.6e-2 and atol
+#: 1.6e-2·max(1, max|CPU output|) (bf16 activations; per node for SchNet's
+#: graph task, whose energies and MSE take the bars the node outputs imply)
+XDEV_LOSS_RTOL, XDEV_BF16_TOL = 1e-3, 1.6e-2
+#: SchNet's graph-task loss on each device within this of its f64
+#: evaluation (the CPU tests' bar on that MSE against repro)
+XDEV_GRAPH_MSE_RTOL = 1e-2
+
+
+def retriever_config():
+    from repro_torch.configs.base import TwoTowerConfig
+
+    return TwoTowerConfig(embed_dim=256, tower_mlp=(1024, 512, 256),
+                          n_user_features=8, n_item_features=8,
+                          user_vocab=150_000, item_vocab=150_000)
+
+
+def feature_ids(entities, cluster_of, n_features: int, vocab: int):
+    """examples/train_retriever.py's features on the card: feature 0 is the
+    entity's cluster, the rest are hashes of its id into the vocab."""
+    cols = [cluster_of[entities]]
+    for j in range(1, n_features):
+        cols.append((entities * 31 + j * 7919) % (vocab - N_CLUSTERS)
+                    + N_CLUSTERS)
+    return torch.stack(cols, dim=1).to(torch.int32)
+
+
+def retriever_world(seed: int) -> dict:
+    """Users and items with a cluster each (the example's make_world, drawn
+    with numpy), on the card, with the items grouped by cluster."""
+    rng = np.random.default_rng(seed)
+    users = torch.from_numpy(rng.integers(0, N_CLUSTERS, RETRIEVER_USERS))
+    items = torch.from_numpy(rng.integers(0, N_CLUSTERS, RETRIEVER_ITEMS))
+    users, items = users.cuda(), items.cuda()
+    counts = torch.bincount(items, minlength=N_CLUSTERS)
+    return {"user_cluster": users, "item_cluster": items,
+            "by_cluster": torch.argsort(items, stable=True),
+            "counts": counts, "offsets": torch.cumsum(counts, 0) - counts}
+
+
+def retriever_batch(world: dict, cfg, step: int, seed: int) -> dict:
+    """Step ``step``'s interactions: users uniform, each with a positive
+    item from its own cluster (the example's stream), drawn on the card
+    from a generator seeded by the step, so a resumed run sees the same
+    batches."""
+    gen = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + step)
+    users = torch.randint(0, RETRIEVER_USERS, (RETRIEVER_BATCH,),
+                          generator=gen, device="cuda")
+    c = world["user_cluster"][users]
+    u = torch.rand(RETRIEVER_BATCH, generator=gen, device="cuda")
+    pos = world["offsets"][c] + torch.minimum(
+        (u * world["counts"][c]).long(), world["counts"][c] - 1)
+    items = world["by_cluster"][pos]
+    return {"user_ids": feature_ids(users, world["user_cluster"],
+                                    cfg.n_user_features, cfg.user_vocab),
+            "item_ids": feature_ids(items, world["item_cluster"],
+                                    cfg.n_item_features, cfg.item_vocab)}
+
+
+def _train_leg(step_fn, state, world, cfg, seed, total, tag, ck=None,
+               handler=None, preempt_at=None):
+    """``run_train_loop`` from ``state``'s step to ``total`` (a checkpoint
+    every RETRIEVER_CKPT_EVERY steps with ``ck``; a SIGTERM while step
+    ``preempt_at`` runs); returns the state, the loss history and the ms a
+    step of each logged interval."""
+    from repro_torch.train import trainer
+
+    start = int(state["step"])
+    marks = [(start, time.perf_counter())]
+
+    def batches():
+        for s in range(start, total):
+            if s + 1 == preempt_at:
+                # the preemption notice arrives while step s + 1 runs
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield retriever_batch(world, cfg, s, seed)
+
+    def log(msg):
+        if msg.startswith("step "):
+            n = int(msg.split()[1].rstrip(":"))
+            marks.append((n, time.perf_counter()))   # float(loss) synced
+            (n0, t0), (n1, t1) = marks[-2], marks[-1]
+            ms = (t1 - t0) * 1e3 / (n1 - n0)
+            print(f"[models] {tag}{msg}; {ms:.2f} ms a "
+                  f"step, {RETRIEVER_BATCH / ms * 1e3:.0f} examples/s")
+        else:
+            print(f"[models] {msg}")
+
+    cfg_loop = trainer.TrainLoopConfig(
+        total_steps=total, log_every=RETRIEVER_LOG_EVERY,
+        checkpoint_every=RETRIEVER_CKPT_EVERY if ck else 0)
+    state, hist = trainer.run_train_loop(
+        step_fn, state, batches(), cfg_loop, checkpointer=ck,
+        preemption=handler, log_fn=log)
+    intervals = [(b[0] - a[0], (b[1] - a[1]) * 1e3 / (b[0] - a[0]))
+                 for a, b in zip(marks, marks[1:])]
+    return state, hist, intervals
+
+
+def _leaves_equal(a, b) -> tuple[bool, float]:
+    from repro_torch.train.optimizer import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    same = len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+    err = max(float((x.double() - y.double()).abs().max())
+              for x, y in zip(la, lb) if x.numel())
+    return same, err
+
+
+def train_retriever(args, world, cfg):
+    """300 steps uninterrupted, then the same 300 with a SIGTERM at step
+    150: emergency checkpoint, restore into a fresh state (bit for bit),
+    resume.  Returns the resumed run's final state."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import recsys as R
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.fault_tolerance import PreemptionHandler
+    from repro_torch.train.optimizer import tree_num_params, tree_size_bytes
+
+    spec = R.two_tower_spec(cfg)
+    tx = O.adamw(O.cosine_schedule(3e-3, 20, RETRIEVER_STEPS),
+                 weight_decay=1e-4, max_grad_norm=1.0)
+    step_fn = trainer.make_train_step(
+        lambda p, b: R.two_tower_loss(p, b, cfg), tx)
+
+    def fresh():
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        return trainer.init_state(
+            gen, lambda g: L.init_params(g, spec, "cuda"), tx)
+
+    state = fresh()
+    print(f"[models] two-tower retriever: {tree_num_params(state['params'])} "
+          f"params (embed {cfg.embed_dim}, towers {cfg.tower_mlp}, "
+          f"{cfg.n_user_features} + {cfg.n_item_features} features, vocab "
+          f"{cfg.user_vocab} each), state {tree_size_bytes(state) / 1e9:.3f} "
+          f"GB; adamw(cosine 3e-3, warmup 20), weight decay 1e-4, clip 1.0, "
+          f"batch {RETRIEVER_BATCH}, {RETRIEVER_STEPS} steps")
+    ref, ref_hist, ref_ms = _train_leg(step_fn, state, world, cfg, args.seed,
+                                       RETRIEVER_STEPS, tag="uninterrupted ")
+    del state
+    steady = [ms for _, ms in ref_ms[1:]]
+    print(f"[models] uninterrupted: {statistics.median(steady):.2f} ms a step "
+          f"(median of the {len(steady)} intervals after the first), "
+          f"{RETRIEVER_BATCH / statistics.median(steady) * 1e3:.0f} "
+          f"examples/s; first interval {ref_ms[0][1]:.2f} ms a step")
+
+    handler = PreemptionHandler()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp, keep=2)
+        try:
+            state, _, _ = _train_leg(step_fn, fresh(), world, cfg, args.seed,
+                                     RETRIEVER_STEPS, ck=ck, handler=handler,
+                                     preempt_at=RETRIEVER_PREEMPT_AT,
+                                     tag="preempted run ")
+        finally:
+            handler.uninstall()
+        ck.wait()
+        saved = int(state["step"])
+        like = trainer.abstract_state(L.abstract_params(spec), tx)
+        t0 = time.perf_counter()
+        restored = ck.restore(like, device="cuda")
+        torch.cuda.synchronize()
+        same, err = _leaves_equal(restored, state)
+        print(f"[models] SIGTERM at step {RETRIEVER_PREEMPT_AT}: stopped at "
+              f"step {saved}, checkpoints {ck.all_steps()} (LATEST "
+              f"{ck.latest_step()}); restored into a fresh state in "
+              f"{time.perf_counter() - t0:.2f} s: "
+              f"{'bit for bit' if same else f'DIFFERS (max {err:.3g})'}")
+        if not (saved == RETRIEVER_PREEMPT_AT == ck.latest_step() and same):
+            raise AssertionError("the emergency checkpoint does not restore "
+                                 "the preempted state")
+        del state
+        resumed, _, _ = _train_leg(step_fn, restored, world, cfg,
+                                      args.seed, RETRIEVER_STEPS, ck=ck,
+                                      tag="resumed ")
+        ck.wait()
+    same, err = _leaves_equal(resumed, ref)
+    losses = [(h["step"], round(h["loss"], 4)) for h in ref_hist]
+    print(f"[models] resumed at step {RETRIEVER_STEPS} vs uninterrupted: "
+          f"{'bit for bit' if same else f'max |diff| {err:.3g}'}; loss "
+          f"history {losses}")
+    if not same:
+        # the step is deterministic on the card (F.embedding's sorted
+        # backward, cuBLAS, no atomics): a difference is a fault
+        raise AssertionError("resumed training differs from the "
+                             "uninterrupted run")
+    if not ref_hist[-1]["loss"] < 0.75 * np.log(RETRIEVER_BATCH):
+        # an untrained model's in-batch softmax CE is ln(batch)
+        raise AssertionError("the retriever did not learn")
+    return resumed["params"]
+
+
+def _cluster_precision(world, users, top_ids) -> float:
+    got = world["item_cluster"][top_ids.long()]
+    return float((got == world["user_cluster"][users][:, None]).float().mean())
+
+
+def retriever_index(args, world, cfg, params) -> dict[str, int]:
+    """The frozen item tower embeds every item; the 2,048 eval users are
+    searched exactly (float) and through the compressed index built with
+    [CenterNorm, PCA(128), CenterNorm, Int8Quantizer] (one fused_quantize
+    encode, int8_ip + topk_blocks search).  Returns the part's launches."""
+    from repro_torch.core import (CenterNorm, CompressionPipeline,
+                                  Int8Quantizer, PCA)
+    from repro_torch.models import recsys as R
+    from repro_torch.retrieval import (CompressedIndex, DenseIndex,
+                                       recall_at_k)
+    from repro_torch.retrieval.scorers import (apply_float_stages,
+                                               encode_storage)
+    from repro_torch.utils import chunked
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        items = torch.arange(RETRIEVER_ITEMS, device="cuda")
+        emb = torch.cat([R.item_embedding(params, feature_ids(
+            items[s:e], world["item_cluster"], cfg.n_item_features,
+            cfg.item_vocab), cfg) for s, e in chunked(RETRIEVER_ITEMS,
+                                                      131_072)])
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+        users = torch.randint(0, RETRIEVER_USERS, (RETRIEVER_EVAL_USERS,),
+                              generator=gen, device="cuda")
+        queries = R.user_embedding(params, feature_ids(
+            users, world["user_cluster"], cfg.n_user_features,
+            cfg.user_vocab), cfg)
+    torch.cuda.synchronize()
+    print(f"[models] item tower: {tuple(emb.shape)} f32 candidate "
+          f"embeddings of every item in {time.perf_counter() - t0:.2f} s; "
+          f"{RETRIEVER_EVAL_USERS} users")
+    if not bool(torch.isfinite(emb).all() and torch.isfinite(queries).all()):
+        raise AssertionError("non-finite tower outputs")
+
+    reset_launch_counts()
+    exact = DenseIndex(emb, device="cuda")
+    _, exact_ids, exact_secs = _search_batches(exact, queries, K)
+    p_exact = _cluster_precision(world, users, exact_ids)
+    pipe = CompressionPipeline([CenterNorm(), PCA(128), CenterNorm(),
+                                Int8Quantizer()])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = CompressedIndex.build(
+        emb, queries, pipe, rng=torch.Generator(device="cuda").manual_seed(
+            args.seed), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    vals, ids, secs = _search_batches(index, queries, K)
+    counts = launch_counts()
+    _checked("retriever 24x recipe", vals, ids, RETRIEVER_EVAL_USERS,
+             RETRIEVER_ITEMS)
+    for kern in ("fused_quantize", "int8_ip", "topk_blocks"):
+        if counts[kern] < 1:
+            raise AssertionError(f"{kern} never launched on the retriever's "
+                                 "index")
+    p_comp = _cluster_precision(world, users, ids)
+    overlap = recall_at_k(ids, exact_ids)
+    ratio = emb.numel() * emb.element_size() / index.nbytes
+    print(f"[models] exact float search: {latency(exact_secs, len(users))}; "
+          f"cluster precision@{K} {p_exact:.4f} (chance "
+          f"{1 / N_CLUSTERS:.4f})")
+    print(f"[models] [CenterNorm, PCA(128), CenterNorm, Int8Quantizer] "
+          f"({emb.shape[1]} -> {index.storage.shape[1]} dims + int8): built "
+          f"in {build_s:.2f} s, "
+          f"{ratio:.1f}x smaller than f32; {latency(secs, len(users))}; "
+          f"cluster precision@{K} {p_comp:.4f}, "
+          f"{p_comp / max(p_exact, 1e-9):.4f} of the float search's; "
+          f"recall@{K} of the float search's top-{K} {overlap:.4f}")
+
+    # after the count: the encode's time, then each kernel against its
+    # plain version at the main path's bars
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes, _ = encode_storage(index.float_stages, index.scorer, emb)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    plain = index.scorer.encode_docs(
+        apply_float_stages(index.float_stages, emb, "docs"))
+    ok_codes, worst, share = codes_agree(index.storage, plain)
+    ok_rank, err = ranking_agrees(index.search(queries[:BATCH], K),
+                                  plain_search(index, queries[:BATCH], K),
+                                  exact=False)
+    print(f"[models] encode (fused_quantize) {encode_s:.3f} s, "
+          f"{RETRIEVER_ITEMS / encode_s:.0f} items/s, codes "
+          f"{'equal' if torch.equal(codes, index.storage) else 'DIFFER'} "
+          f"on a second pass; vs the staged plain encode: max diff {worst}, "
+          f"share differing {share:.3g} "
+          f"({'within' if ok_codes else 'OUTSIDE'} the bar); int8_ip + "
+          f"topk_blocks search vs the plain versions: "
+          f"{'ok' if ok_rank else 'MISMATCH'} (max_abs_err {err:.3g})")
+    if not (ok_codes and ok_rank and torch.equal(codes, index.storage)):
+        raise AssertionError("the retriever's index disagrees with the "
+                             "plain versions of its kernels")
+    if overlap < RETRIEVER_RECALL_FLOOR:
+        raise AssertionError(f"the compressed index's recall@{K} "
+                             f"{overlap:.4f} is under the floor "
+                             f"{RETRIEVER_RECALL_FLOOR}")
+    print(f"[models] retriever index launches {counts}")
+    return counts
+
+
+def floor_bytes(model, specs: dict, train: bool, n_params: int,
+                held: bool) -> tuple[float, str]:
+    """An exact lower bound on the bytes a shape's step or forward must
+    allocate beside what is already held, and what it is made of: the
+    batch; for a train step the gradients and the old and new Adam moments
+    (20 B a parameter, alive together when ``scale_by_adam`` returns),
+    plus the parameters themselves where they are not ``held`` yet; for
+    SchNet the (E, n_rbf) radial basis in f32 and the bf16 copy that the
+    first filter reads, alive together."""
+    from repro_torch.configs.base import SchNetConfig
+
+    parts = [("batch", sum(t.numel() * t.element_size()
+                           for t in specs.values()))]
+    if train:
+        parts.append(("grads and old and new Adam moments", 20 * n_params))
+    if not held:
+        parts.append(("params", 4 * n_params))
+    if isinstance(model, SchNetConfig):
+        e = specs["edge_index"].shape[1]
+        parts.append((f"rbf ({e}, {model.n_rbf}) f32 + bf16",
+                      6 * e * model.n_rbf))
+    return float(sum(b for _, b in parts)), ", ".join(
+        f"{name} {b / 1e9:.1f} GB" for name, b in parts)
+
+
+def _timed(fn, reps: int) -> tuple[list[float], object]:
+    out, ms = None, []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, out
+
+
+def _ms(ms) -> str:
+    return " / ".join(f"{x:.2f}" for x in ms) + " ms"
+
+
+def full_config_runs(args) -> None:
+    """FULL configs on the card: the two-tower's tables initialised and its
+    serving and candidate forwards run; FM, DIN and DCN-v2 train steps at
+    train_batch and their forwards at the serving and candidate shapes;
+    SchNet train steps at each GNN shape.  A shape whose exact lower bound
+    of bytes exceeds the free memory is printed with it and skipped."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.batches import input_specs, make_batch, shape_dims
+    from repro_torch.models import gnn as G
+    from repro_torch.models import layers as L
+    from repro_torch.models import recsys as R
+    from repro_torch.retrieval.topk import topk_score_then_id
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer
+
+    recsys = {  # arch → (spec, loss, score, candidate scores)
+        "two-tower-retrieval": (R.two_tower_spec, R.two_tower_loss,
+                                R.two_tower_score, R.retrieval_scores),
+        "fm": (R.fm_spec, R.fm_loss, R.fm_logits, R.fm_candidate_scores),
+        "din": (R.din_spec, R.din_loss, R.din_logits,
+                R.din_candidate_scores),
+        "dcn-v2": (R.dcn_spec, R.dcn_loss, R.dcn_logits,
+                   R.dcn_candidate_scores),
+    }
+    rng = np.random.default_rng(args.seed)
+    gb = 1e9
+
+    def fits(tag, arch, model, shape, train, n_params, held) -> bool:
+        specs = input_specs(arch, shape, reduced=False)
+        need, parts = floor_bytes(model, specs, train, n_params, held)
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        if need > free:
+            print(f"[models] {tag} {shape.name} {shape_dims(shape, False)}: "
+                  f"skipped, needs at least {need / gb:.1f} GB ({parts}) "
+                  f"of {free / gb:.1f} GB free")
+            return False
+        return True
+
+    def train_steps(tag, arch, shape, params, loss_fn):
+        tx = O.OptimizerConfig(lr=1e-3, total_steps=10000).build()
+        state = {"params": params, "opt": tx.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        step = trainer.make_train_step(loss_fn, tx)
+        batch = make_batch(rng, arch, shape, reduced=False, device="cuda")
+        losses = []
+
+        def one():
+            nonlocal state
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms, _ = _timed(one, FULL_TRAIN_STEPS)
+        vals = [float(v) for v in losses]
+        if not all(np.isfinite(vals)):
+            raise AssertionError(f"{tag} {shape.name}: non-finite loss")
+        print(f"[models] {tag} {shape.name} train {FULL_TRAIN_STEPS} steps "
+              f"(batch {shape_dims(shape, False)}): {_ms(ms)}; loss "
+              f"{[round(v, 4) for v in vals]}; peak "
+              f"{torch.cuda.max_memory_allocated() / gb:.2f} GB allocated "
+              f"({held / gb:.2f} GB before the steps)")
+        return state["params"]
+
+    for name, (spec_fn, loss, score, cand) in recsys.items():
+        arch = get_arch(name)
+        cfg = arch.model
+        spec = spec_fn(cfg)
+        n_params = L.param_count(spec)
+        ms, params = _timed(lambda: L.init_params(
+            torch.Generator(device="cuda").manual_seed(args.seed), spec,
+            "cuda"), 1)
+        print(f"[models] {name} FULL: {n_params} params "
+              f"({n_params * 4 / gb:.2f} GB f32), initialised on the card in "
+              f"{_ms(ms)}")
+        for shape in arch.shapes:
+            kind = shape.kind
+            if kind == "recsys_train":
+                if not fits(name, arch, cfg, shape, True, n_params, True):
+                    total = torch.cuda.get_device_properties(0).total_memory
+                    print(f"[models] {name}: params, grads and two Adam "
+                          f"moments alone take 16 B x {n_params} = "
+                          f"{16 * n_params / gb:.1f} GB of the card's "
+                          f"{total / gb:.1f} GB, and the functional "
+                          f"optimizer holds old and new moments at once "
+                          f"(24 B a parameter, {24 * n_params / gb:.1f} "
+                          "GB): not trained at the full vocab")
+                    continue
+                params = train_steps(name, arch, shape, params,
+                                     lambda p, b, f=loss, c=cfg: f(p, b, c))
+                continue
+            if not fits(name, arch, cfg, shape, False, n_params, True):
+                continue
+            batch = make_batch(rng, arch, shape, reduced=False, device="cuda")
+            with torch.no_grad():
+                if kind == "recsys_serve":
+                    ms, out = _timed(lambda: score(params, batch, cfg),
+                                     FULL_FWD_REPS)
+                else:
+                    def retrieve():
+                        s = cand(params, batch, cfg)
+                        s = s[None, :] if s.ndim == 1 else s
+                        ids = torch.arange(s.shape[-1], dtype=torch.int32,
+                                           device="cuda").expand(s.shape)
+                        return topk_score_then_id(s, ids, min(100,
+                                                              s.shape[-1]))
+                    ms, out = _timed(retrieve, FULL_FWD_REPS)
+                    out = out[0]
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} {shape.name}: non-finite output")
+            print(f"[models] {name} {shape.name} forward "
+                  f"{shape_dims(shape, False)} -> {tuple(out.shape)}"
+                  f"{' top-100' if kind == 'retrieval_cand' else ''}: "
+                  f"{_ms(ms)}")
+            del batch, out
+        del params
+        torch.cuda.empty_cache()
+
+    arch = get_arch("schnet")
+    for shape in arch.shapes:
+        dims = shape_dims(shape, False)
+        if shape.kind in ("gnn_full", "gnn_mini"):
+            cfg = dataclasses.replace(arch.model, d_feat_in=dims.get(
+                "d_feat", 602), task="node", n_classes=64)
+        else:
+            cfg = dataclasses.replace(arch.model, d_feat_in=0, task="graph")
+        if not fits("schnet", arch, cfg, shape, True,
+                    L.param_count(G.schnet_spec(cfg)), False):
+            continue
+        params = G.init(torch.Generator(device="cuda").manual_seed(
+            args.seed), cfg, "cuda")
+        train_steps(f"schnet ({cfg.task} task)", arch, shape, params,
+                    lambda p, b, c=cfg: G.loss_fn(p, b, c))
+        torch.cuda.empty_cache()
+
+
+def _graph_bars(params, batch, cfg, node_out) -> tuple:
+    """SchNet's graph task on the CPU: the energies and, from the per-node
+    outputs they sum, each energy's bar (rtol·|E| + atol·Σ|node output|)
+    and the bar on the MSE that those bars imply."""
+    from repro_torch.models import gnn as G
+    from repro_torch.models.recsys import segment_sum
+
+    energy = G.forward(params, batch, cfg)
+    bar = XDEV_BF16_TOL * (energy.abs() + segment_sum(
+        node_out.abs(), batch["graph_ids"], energy.shape[0]))
+    err = (energy - batch["targets"]).abs()
+    return energy, bar, float(torch.mean(2 * err * bar + bar * bar))
+
+
+def schnet_loss_probe(params, batch, cfg, repeats: int = 5
+                      ) -> tuple[str, float]:
+    """SchNet's graph-task loss on one batch, beside the CPU's f64
+    evaluation of the same function (every bf16 step in f64): the card's
+    bf16 loss over ``repeats`` runs (its atomic bf16 segment sums add in
+    a varying order) and the CPU's, then both with the segment sums in
+    f32, so the line shows how far each bf16 evaluation sits from the f64
+    one and how much of that the segment sums make.  Returns the line and
+    the largest relative distance of a bf16 loss from the f64 one."""
+    from unittest import mock
+
+    from repro_torch.models import gnn as G
+    from repro_torch.models import layers as L
+    from repro_torch.models.recsys import segment_sum
+    from repro_torch.train.optimizer import tree_map
+
+    dense = L.dense
+    card_p, card_b = (tree_map(lambda x: x.cuda(), t)
+                      for t in (params, batch))
+
+    def losses():
+        with torch.no_grad():
+            card = [float(G.loss_fn(card_p, card_b, cfg)[0])
+                    for _ in range(repeats)]
+            return card, float(G.loss_fn(params, batch, cfg)[0])
+
+    def f32_sums(x, ids, n):
+        return segment_sum(x.float(), ids, n).to(x.dtype)
+
+    card, cpu = losses()
+    with mock.patch.object(G, "segment_sum", f32_sums):
+        card32, cpu32 = losses()
+    with mock.patch.object(G, "BF16", torch.float64), mock.patch.object(
+            L, "dense", lambda p, x, compute_dtype=None: dense(
+                p, x, torch.float64)), torch.no_grad():
+        f64 = float(G.loss_fn(params, batch, cfg)[0])
+
+    def rel(v):
+        return f"{v:.5f} ({(v - f64) / f64:+.2e})"
+
+    worst = max(abs(v - f64) / f64 for v in card + [cpu])
+    return (f"f64 evaluation on the CPU {f64:.5f}; relative to it: bf16 "
+            f"segment sums: card {rel(min(card))} … {rel(max(card))} over "
+            f"{repeats} runs, CPU {rel(cpu)}; f32 segment sums: card "
+            f"{rel(min(card32))} … {rel(max(card32))}, CPU {rel(cpu32)}"
+            ), worst
+
+
+def cross_device(args) -> None:
+    """Each model at its REDUCED config, one batch, from the same
+    parameters: loss and outputs on the card against the CPU, at the CPU
+    tests' bars.  SchNet's graph task is held per node, per energy, by
+    the MSE bar its energy bars imply, and each device's loss against the
+    f64 evaluation (``schnet_loss_probe``)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.batches import make_batch
+    from repro_torch.models import gnn as G
+    from repro_torch.models import layers as L
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import tree_map
+
+    def per_node(p, b, c):
+        """The graph task with every node its own graph: the per-node
+        outputs that the energies sum."""
+        n = b["positions"].shape[0]
+        ids = torch.arange(n, dtype=torch.int32, device=b["positions"].device)
+        return G.forward(p, dict(b, graph_ids=ids), c, n_graphs=n)
+
+    cases = [("two-tower-retrieval", "train_batch", R.two_tower_spec,
+              R.two_tower_loss, R.two_tower_score),
+             ("fm", "train_batch", R.fm_spec, R.fm_loss, R.fm_logits),
+             ("din", "train_batch", R.din_spec, R.din_loss, R.din_logits),
+             ("dcn-v2", "train_batch", R.dcn_spec, R.dcn_loss, R.dcn_logits),
+             ("schnet", "molecule", G.schnet_spec, G.loss_fn, per_node),
+             ("schnet", "full_graph_sm", G.schnet_spec, G.loss_fn,
+              G.forward)]
+    on_card = lambda t: tree_map(lambda x: x.cuda(), t)
+    report = []
+    for name, shape_name, spec_fn, loss_fn, out_fn in cases:
+        arch = get_arch(name)
+        shape = arch.shape(shape_name)
+        cfg = arch.reduced
+        if name == "schnet" and shape.kind == "gnn_full":
+            cfg = dataclasses.replace(cfg, task="node", n_classes=64,
+                                      d_feat_in=shape.dims["d_feat"])
+        params = L.init_params(torch.Generator().manual_seed(args.seed),
+                               spec_fn(cfg), "cpu")
+        batch = make_batch(np.random.default_rng(args.seed), arch, shape,
+                           reduced=True, device="cpu")
+        with torch.no_grad():
+            lc, _ = loss_fn(params, batch, cfg)
+            lg, _ = loss_fn(on_card(params), on_card(batch), cfg)
+            oc = out_fn(params, batch, cfg)
+            og = out_fn(on_card(params), on_card(batch), cfg).cpu()
+            loss_bar = XDEV_LOSS_RTOL * abs(float(lc))
+            energies_ok = True
+            if out_fn is per_node:
+                energy, bar, loss_bar = _graph_bars(params, batch, cfg, oc)
+                e_gpu = G.forward(on_card(params), on_card(batch), cfg)
+                energies_ok = bool(((e_gpu.cpu() - energy).abs()
+                                    <= bar).all())
+        scale = max(1.0, float(oc.abs().max()))
+        # the atol each output needs beside rtol·|CPU output|
+        need = max(0.0, float(((og - oc).abs()
+                              - XDEV_BF16_TOL * oc.abs()).max()))
+        loss_err = abs(float(lg) - float(lc))
+        ok = (loss_err <= loss_bar and need <= XDEV_BF16_TOL * scale
+              and energies_ok and bool(torch.isfinite(og).all()))
+        report.append(f"{name}:{shape_name} loss {float(lg):.5f} vs "
+                      f"{float(lc):.5f} (|diff| {loss_err:.2g} of "
+                      f"{loss_bar:.2g}), outputs {tuple(oc.shape)} need atol "
+                      f"{need:.3g} of {XDEV_BF16_TOL * scale:.3g}"
+                      + ("" if out_fn is not per_node else
+                         f", energies {'within' if energies_ok else 'OUTSIDE'}"
+                         " their bars"))
+        if out_fn is per_node:
+            line, worst = schnet_loss_probe(params, batch, cfg)
+            ok = ok and worst <= XDEV_GRAPH_MSE_RTOL
+            print(f"[models] {name}:{shape_name} loss, {line} (bar "
+                  f"{XDEV_GRAPH_MSE_RTOL})")
+        if not ok:
+            print("[models] cuda vs cpu: " + "; ".join(report))
+            raise AssertionError(f"{name} {shape_name}: the card and the CPU "
+                                 "disagree")
+    print(f"[models] cuda vs cpu (reduced configs, outputs rtol "
+          f"{XDEV_BF16_TOL}): " + "; ".join(report))
+
+
+def phase_models(args) -> dict[str, int]:
+    """The model path: the retriever trained with a preemption and resumed,
+    its item index compressed and searched through the kernels, the FULL
+    configs' steps and forwards, and the card against the CPU.  Returns
+    the launch counts of the retriever's index."""
+    t_phase = time.perf_counter()
+    cfg = retriever_config()
+    world = retriever_world(args.seed)
+    params = train_retriever(args, world, cfg)
+    counts = retriever_index(args, world, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    t_full = time.perf_counter()
+    full_config_runs(args)
+    print(f"[models] FULL configs {time.perf_counter() - t_full:.1f} s")
+    cross_device(args)
+    print(f"[models] phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1_000_000)
@@ -2336,18 +3030,23 @@ def main(argv=None) -> int:
         mutable_counts = phase_mutable(args, kb_on_card(mutable_kb,
                                                         "mutable", args))
         lap("mutable")
+    torch.cuda.empty_cache()
+    models_counts = phase_models(args)
+    lap("models")
     # each kernel's launches on the path that drives it (the IVF kernel's
-    # on the resident and the tiered IVF paths together), plus the sharded
-    # and off-path phases
+    # on the resident and the tiered IVF paths together), plus the sharded,
+    # off-path and model phases
     ivf_counts = {n: ivf_counts[n] + tiered_counts[n] for n in ivf_counts}
     path_counts = {"fused_ivf_topk": ivf_counts,
                    "fused_quantize": mutable_counts}
     for rec in kernels:
         rec["launches"] = (path_counts.get(rec["name"], counts)[rec["name"]]
                            + sharded_counts[rec["name"]]
-                           + offpath_counts[rec["name"]])
+                           + offpath_counts[rec["name"]]
+                           + models_counts[rec["name"]])
         rec["launches_sharded"] = sharded_counts[rec["name"]]
         rec["launches_offpath"] = offpath_counts[rec["name"]]
+        rec["launches_models"] = models_counts[rec["name"]]
     print(f"[done] {time.perf_counter() - t_start:.1f} s ("
           + ", ".join(f"{n} {t} s" for n, t in times.items())
           + f"); card {smi}")

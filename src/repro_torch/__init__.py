@@ -16,9 +16,17 @@ Layers
 - ``repro_torch.kernels``   : hand-written CUDA C++ kernels for Hopper
                               (``sm_90a``), each beside its plain PyTorch
                               version.
-- ``repro_torch.data``      : the deterministic synthetic DPR-like corpus.
+- ``repro_torch.data``      : the deterministic synthetic DPR-like corpus
+                              and the per-(arch × shape) batches.
+- ``repro_torch.configs``   : every architecture config and its shapes
+                              (copies of ``repro.configs``).
+- ``repro_torch.models``    : the ParamSpec layers, the recsys models
+                              (two-tower, FM, DIN, DCN-v2) and SchNet.
 - ``repro_torch.train``     : the functional optimizer library (AdamW, SGD,
-                              int8-moment Adam, schedules).
+                              int8-moment Adam, schedules), the train step
+                              and loop (``trainer``), checkpoints that
+                              ``repro`` reads and writes (``checkpoint``)
+                              and fault tolerance.
 
 Device contract: entry points take ``device=None``, which means ``"cuda"``;
 without a CUDA device they raise unless the caller passes ``device="cpu"``.

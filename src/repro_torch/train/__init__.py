@@ -1,5 +1,5 @@
-"""Training substrate in PyTorch: the composable optimizer library.
+"""Training substrate in PyTorch: optimizers, the train step and loop,
+checkpointing, fault tolerance.
 
-Counterpart of ``repro.train`` (its trainer loop and checkpointing are not
-ported yet).
+Counterpart of ``repro.train`` (``elastic.py`` is still to port).
 """

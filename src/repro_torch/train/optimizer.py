@@ -60,20 +60,36 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def _tensor_leaves(tree) -> list:
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def tree_num_params(tree) -> int:
+    """Elements in the tensor leaves of a tree of dicts, lists and tuples."""
+    return sum(x.numel() for x in _tensor_leaves(tree))
+
+
+def tree_size_bytes(tree) -> int:
+    """Bytes in the tensor leaves of a tree (meta tensors count too)."""
+    return sum(x.numel() * x.element_size() for x in _tensor_leaves(tree))
+
+
+def _unflatten(t, it):
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    if _is_node(t):
+        out = [_unflatten(c, it) for c in t]
+        return type(t)(*out) if hasattr(t, "_fields") else type(t)(out)
+    return next(it)
+
+
 def tree_unflatten(tree, leaves):
     """``tree``'s structure with ``leaves`` (in :func:`tree_leaves` order)
-    in place of its own."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if _is_node(t):
-            out = [build(c) for c in t]
-            return type(t)(*out) if hasattr(t, "_fields") else type(t)(out)
-        return next(it)
-
-    return build(tree)
+    in place of its own.  (A module-level helper, not a recursive closure:
+    a closure that calls itself is a reference cycle, which would keep
+    ``leaves`` — a step's gradients or updates — alive until the cyclic
+    garbage collector ran.)"""
+    return _unflatten(tree, iter(leaves))
 
 
 def params_from_numpy(tree, device: Optional[torch.device] = None):

@@ -1,4 +1,5 @@
-"""Shared helpers: chunking, and the device and backend contracts.
+"""Shared helpers: chunking, tree sizes, and the device and backend
+contracts.
 
 Device: every entry point takes ``device=None``, which means ``"cuda"``.
 Asking for CUDA where there is none raises — the package never carries on
@@ -32,6 +33,10 @@ DeviceLike = Union[str, torch.device, None]
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return cdiv(a, b) * b
 
 
 def chunked(n: int, chunk: int) -> Iterable[tuple[int, int]]:

@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.core import pca as repro_pca  # noqa: E402
 from repro.core import preprocess as repro_pre  # noqa: E402
 from repro.core import quantization as repro_q  # noqa: E402

@@ -5,6 +5,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.data import make_dpr_like_kb as repro_kb  # noqa: E402
 from repro_torch.data import make_dpr_like_kb as port_kb  # noqa: E402
 

@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.core import (CenterNorm as RCenterNorm,  # noqa: E402
                         CompressionPipeline as RPipeline,
                         Int8Quantizer as RInt8, PCA as RPCA)

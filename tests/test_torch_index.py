@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 import repro.retrieval.api as r_api  # noqa: E402
 from repro.core import (CenterNorm, CompressionPipeline, Int8Quantizer,  # noqa: E402
                         OneBitQuantizer, PCA)

@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 import repro.retrieval.api as r_api  # noqa: E402
 from repro.core.rotation import LearnedRotation as RRotation  # noqa: E402
 from repro.data import make_dpr_like_kb  # noqa: E402

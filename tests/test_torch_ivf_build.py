@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 import repro.retrieval.api as r_api  # noqa: E402
 import repro_torch.retrieval.api as p_api  # noqa: E402
 from test_torch_ivf import (BACKENDS, CASES, K, VARIANTS,  # noqa: E402,F401

@@ -20,11 +20,17 @@ of the f32 sums differs: values within 1e-5·max|v|, and ids equal at
 every rank whose neighbouring values differ by more than that.
 """
 
+import os
+import subprocess
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.kernels.ivf_fused import ops as r_ops  # noqa: E402
 from repro_torch.core.quantization import words_from_numpy  # noqa: E402
@@ -67,6 +73,56 @@ def _case(backend, nprobe, with_base, seed=0, length=L):
     extra = (rng.standard_normal((Q, nprobe)).astype(np.float32)
              if with_base else None)
     return q, store, ids, probes, params, extra
+
+
+#: k above the card's shared-memory top-k, held against repro's kernel
+K_ABOVE = 1100
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+#: repro's interpret-mode kernel at k = K_ABOVE on the inputs in argv[1]
+_REPRO_K_ABOVE = """
+import sys
+import jax.numpy as jnp
+import numpy as np
+from repro.kernels.ivf_fused import ops
+d = np.load(sys.argv[1])
+v, i = ops.fused_ivf_topk(
+    jnp.asarray(d["probes"]), jnp.asarray(d["q"]), jnp.asarray(d["store"]),
+    jnp.asarray(d["ids"]), int(sys.argv[3]), "int8",
+    params={"scale": jnp.asarray(d["scale"]), "zero": jnp.asarray(d["zero"])},
+    extra_base=jnp.asarray(d["extra"]), use_pallas=True)
+np.savez(sys.argv[2], v=np.asarray(v), i=np.asarray(i))
+"""
+
+
+def _k1100_case():
+    """int8, 2 probes of 800-row lists, the queries that skip the all-pad
+    list."""
+    q, store, ids, probes, params, extra = _case("int8", 2, True, seed=5,
+                                                 length=800)
+    keep = (probes != 3).all(axis=1)[:3]
+    return (q[:3][keep], store, ids, probes[:3][keep], params,
+            extra[:3][keep])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def repro_k1100(tmp_path_factory):
+    """``repro``'s kernel at k = K_ABOVE in a subprocess started with the
+    module, so its compile overlaps the module's other tests; killed at
+    teardown if a selection never waited for it."""
+    d = tmp_path_factory.mktemp("k_above")
+    q, store, ids, probes, params, extra = _k1100_case()
+    np.savez(d / "in.npz", q=q, store=store, ids=ids, probes=probes,
+             extra=extra, **params)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _REPRO_K_ABOVE, str(d / "in.npz"),
+         str(d / "out.npz"), str(K_ABOVE)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    yield proc, d / "out.npz"
+    if proc.poll() is None:
+        proc.kill()
+    proc.communicate()
 
 
 def _port_inputs(q, store, ids, probes, params, extra):
@@ -219,28 +275,6 @@ def test_k_beyond_the_reachable_candidates_pads_the_tail(backend):
     assert (got[1][:, -1] == -1).all() and np.isneginf(got[0][:, -1]).all()
 
 
-def test_k_above_the_shared_memory_top_k_matches_repro():
-    """k = 1100 > MAX_K: the card keeps the running top-k in a global
-    scratch; the wrapper takes any k, and its plain version ranks as
-    ``repro``'s interpret-mode kernel does.  int8, the main path's backend,
-    only: ``repro`` unrolls its merge into k rounds, ~2 minutes of tracing
-    and compiling at this k whatever the shapes."""
-    backend = "int8"
-    q, store, ids, probes, params, extra = _case(backend, 2, True, seed=5,
-                                                 length=800)
-    keep = (probes != 3).all(axis=1)[:3]     # not the all-pad list
-    case = (q[:3][keep], store, ids, probes[:3][keep], params,
-            extra[:3][keep])
-    got = _port(backend, 1100, *case)
-    assert got[0].shape == (int(keep.sum()), 1100) and MAX_K < 1100
-    assert (got[1][:, -1] >= 0).all()        # every slot holds a real row
-    want = _repro(backend, 1100, *case)
-    assert_same_ranking(got, want, exact=backend == "onebit")
-    # the list-major mirror: each pair hands over its whole 800-row list
-    assert_same_ranking(_mirror(backend, 1100, *case), want,
-                        exact=backend == "onebit")
-
-
 def test_prepare_queries_matches_repro():
     q, _, _, _, params, _ = _case("int8", 1, False)
     qe, base = p_ops.prepare_queries(
@@ -280,3 +314,26 @@ def test_wrapper_checks_and_cpu_launches_do_not_count():
         fused_ivf_topk(probes_t, q_t, store_t, ids_t, base, 5, "int4")
     with pytest.raises(ValueError, match="k must"):
         fused_ivf_topk(probes_t, q_t, store_t, ids_t, base, 0, "float")
+
+
+def test_k_above_the_shared_memory_top_k_matches_repro(repro_k1100):
+    """k = 1100 > MAX_K: the card keeps the running top-k in a global
+    scratch; the wrapper takes any k, and its plain version ranks as
+    ``repro``'s interpret-mode kernel does.  int8, the main path's backend,
+    only: ``repro`` unrolls its merge into k rounds, ~3 minutes of tracing
+    and compiling at this k whatever the shapes, so ``repro``'s side runs
+    in a subprocess started with the module (the last test here)."""
+    backend = "int8"
+    case = _k1100_case()
+    got = _port(backend, K_ABOVE, *case)
+    assert got[0].shape == (case[0].shape[0], K_ABOVE) and MAX_K < K_ABOVE
+    assert (got[1][:, -1] >= 0).all()        # every slot holds a real row
+    proc, out = repro_k1100
+    log, _ = proc.communicate(timeout=1200)
+    assert proc.returncode == 0, log
+    with np.load(out) as res:
+        want = res["v"], res["i"]
+    assert_same_ranking(got, want, exact=backend == "onebit")
+    # the list-major mirror: each pair hands over its whole 800-row list
+    assert_same_ranking(_mirror(backend, K_ABOVE, *case), want,
+                        exact=backend == "onebit")

@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.core.quantization import Int8Quantizer, pack_bits  # noqa: E402
 from repro.kernels.binary_ip import ops as r_bops  # noqa: E402
 from repro.kernels.binary_ip import ref as r_bref  # noqa: E402

@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 import repro.retrieval.api as r_api  # noqa: E402
 from repro.serve import RetrievalService as RService  # noqa: E402
 from repro_torch.retrieval import (DenseIndex, IndexSpec,  # noqa: E402

@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 import repro_torch.parallel.placement as placement  # noqa: E402
 from repro_torch.retrieval.api import (IndexSpec, ShardSpec,  # noqa: E402
                                        build_index, load_index, save_index)

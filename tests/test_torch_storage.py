@@ -30,6 +30,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 import repro.retrieval.api as r_api  # noqa: E402
 import repro.storage as r_storage  # noqa: E402
 from repro.retrieval.segments import SegmentedIndex as RSegmented  # noqa: E402

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.retrieval import topk as rt  # noqa: E402
 from repro_torch.retrieval import topk as pt  # noqa: E402
 
