@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port's exact, IVF, sharded, tiered, served,
-off-path and mutable paths, and its model path, on one NVIDIA GPU.
+off-path and mutable paths, and its model and LM paths, on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-docs 1000000] [--n-queries 2048] [--seed 0]
 
@@ -58,10 +58,15 @@ Phases, each printed as it runs:
    ``build_index``; each is saved and loaded (bit-identical ranking), its
    kernel path held against the streaming plain-torch path, and
    nprobe = nlist search over the exact indexes' storage (``to_ivf``)
-   held against exact search.  Then the queries are searched in batches
-   of 256 at nprobe 16, 64 and 256 (qps, p50/p99, recall@10 against
-   nprobe = nlist, R-precision's share of float), with the launch counts
-   set to 0 before and read after; one batch per index is traced.
+   held against exact search; each is built a second time from the same
+   seed and held to the first bit for bit (centroids, list assignment,
+   lists, codes, every fitted stage's state, one searched batch), beside
+   k-means' update run three times each as the atomic ``index_add_`` the
+   port had and as its fixed-order segment sum.  Then the queries are
+   searched in batches of 256 at nprobe 16, 64 and 256 (qps, p50/p99,
+   recall@10 against nprobe = nlist, R-precision's share of float), with
+   the launch counts set to 0 before and read after; one batch per index
+   is traced.
 6. sharded — the 24x, 100x, IVF 24x and IVF 100x indexes saved as
    single-host artifacts and served with ``load_index(shard=...)``
    over a 1x4 and a 2x2 (replicas 2) mesh, all
@@ -153,7 +158,24 @@ Phases, each printed as it runs:
    bf16 loss within 1e-2 relative of the f64 evaluation of the same
    function; that line also gives both losses with the segment sums in
    f32.
-11. the last two lines: ``{"kernels": [...]}`` and the device line.
+11. lm — the five LM architectures (phi4-mini, qwen1.5, qwen3-moe, dbrx,
+   nemotron).  Each REDUCED config, one set of parameters, on the card
+   against the CPU: a train step's loss and gradient leaves, the logits,
+   and a prompt's prefill with 8 greedy decode steps (logits, and the
+   greedy tokens wherever the CPU's top-2 margin clears the bar).  RoPE's
+   cos and sin on both at positions 32,767 and 524,287.  Then every arch
+   × LM shape at the config's published widths with random parameters:
+   prefill_32k (a 32,768-token prompt, then 32 greedy steps), decode_32k
+   (steps against a 32,768-slot cache, the largest batch that fits, up to
+   128), long_500k (a 4,096-token prompt into a 524,288-slot cache, then
+   8 greedy steps, run twice and held equal bit for bit) and train_4k (3
+   adamw steps at 4,096 tokens a sequence in the config's microbatches).
+   Each runs at the full depth and the largest batch whose exact lower
+   bound of bytes fits the free memory, else at batch 1 with layers cut,
+   else is skipped; the cut and the bound's parts are printed beside ms
+   a step, tokens/s, prefill ms, decode ms a token and the peak.  The
+   five kernels' launch counts do not rise: the LM path launches none.
+12. the last two lines: ``{"kernels": [...]}`` and the device line.
 
 Any failure raises before the last line, and the exit code is non-zero.
 """
@@ -161,6 +183,8 @@ Any failure raises before the last line, and the exit code is non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import signal
@@ -1151,6 +1175,67 @@ def phase_main_path(args, kb):
     return counts, indexes, rp_float
 
 
+def _update_by_index_add(x, labels, n_clusters, old):
+    """k-means' update as the port had it before its IVF build repeated on
+    the card: an f32 ``index_add_``, whose adds are atomic there."""
+    sums = torch.zeros((n_clusters, x.shape[1]), device=x.device
+                       ).index_add_(0, labels, x)
+    counts = torch.zeros((n_clusters,), device=x.device).index_add_(
+        0, labels, torch.ones_like(x[:, 0]))
+    new = sums / torch.clamp(counts[:, None], min=1.0)
+    return torch.where(counts[:, None] > 0, new, old)
+
+
+def check_ivf_build_repeats(name, spec, kb, built, q0, search_kw) -> None:
+    """Build the IVF index a second time from the same seed and hold the
+    two to equal bits: centroids, list assignment, lists, stored codes,
+    every fitted stage's state (the rotation included) and one searched
+    batch.  Then k-means' update on the build's own routing rows, labels
+    and centroids, three times each way: the atomic ``index_add_`` form
+    (the port's before) against the fixed-order segment sum."""
+    from repro_torch.retrieval import build_index
+    from repro_torch.retrieval.kmeans import _update
+    from repro_torch.retrieval.scorers import apply_float_stages
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    again = build_index(spec, kb.docs, kb.queries, device="cuda")
+    pairs = [("centroids", built.centroids, again.centroids),
+             ("labels", torch.from_numpy(built._labels),
+              torch.from_numpy(again._labels)),
+             ("lists", built.lists, again.lists),
+             ("codes", built.storage, again.storage)]
+    for ta, tb in zip(built.pipeline.transforms, again.pipeline.transforms):
+        for key, val in (ta.state or {}).items():
+            if isinstance(val, torch.Tensor):
+                pairs.append((f"{type(ta).__name__}.{key}", val,
+                              tb.state[key]))
+    va, ia = built.search(q0, K, nprobe=NPROBE, **search_kw)
+    vb, ib = again.search(q0, K, nprobe=NPROBE, **search_kw)
+    pairs += [("searched ids", ia, ib), ("searched scores", va, vb)]
+    differ = [tag for tag, a, b in pairs if not torch.equal(bits(a), bits(b))]
+    x = apply_float_stages(built.float_stages, kb.docs, "docs").float()
+    labels = torch.from_numpy(built._labels).to(x.device).long()
+    runs = {form: [fn(x, labels, built.nlist, built.centroids)
+                   for _ in range(3)]
+            for form, fn in (("index_add_", _update_by_index_add),
+                             ("segment", _update))}
+    moved = {form: sum(not torch.equal(bits(r), bits(rs[0])) for r in rs[1:])
+             for form, rs in runs.items()}
+    print(f"[ivf] {name}: a second build from the same seed: "
+          f"{', '.join(tag for tag, _, _ in pairs)} "
+          f"{'equal bit for bit' if not differ else 'DIFFER: ' + str(differ)}"
+          f"; k-means' update over its {x.shape[0]} routing rows, 3 runs "
+          f"each: index_add_ (atomic) differs from its first run in "
+          f"{moved['index_add_']} of 2, the fixed-order segment sum in "
+          f"{moved['segment']} of 2")
+    if differ or moved["segment"]:
+        raise AssertionError(f"{name}: the IVF build does not repeat on the "
+                             "card")
+    del again, x, runs
+
+
 def phase_ivf(args, kb, exact, rp_float):
     """IVF search at the paper's two widths; returns the launch counts of
     the timed run and the loaded indexes."""
@@ -1195,6 +1280,7 @@ def phase_ivf(args, kb, exact, rp_float):
             if not same:
                 raise AssertionError(f"{name}: loaded artifact ranks "
                                      "differently from the built index")
+            check_ivf_build_repeats(name, spec, kb, built, q0, search_kw)
             # the streaming plain-torch path on the card as the reference
             ref = load_index(path, device="cuda", backend="torch")
             rv, ri = ref.search(q0, K, **search_kw)
@@ -2344,6 +2430,8 @@ FULL_TRAIN_STEPS, FULL_FWD_REPS = 3, 3
 #: 1.6e-2·max(1, max|CPU output|) (bf16 activations; per node for SchNet's
 #: graph task, whose energies and MSE take the bars the node outputs imply)
 XDEV_LOSS_RTOL, XDEV_BF16_TOL = 1e-3, 1.6e-2
+#: the LMs' gradient leaves, card against CPU (tests/test_torch_models_lm)
+XDEV_GRAD_COS = 0.999
 #: SchNet's graph-task loss on each device within this of its f64
 #: evaluation (the CPU tests' bar on that MSE against repro)
 XDEV_GRAPH_MSE_RTOL = 1e-2
@@ -2986,6 +3074,404 @@ def phase_models(args) -> dict[str, int]:
     return counts
 
 
+#: the [lm] phase: the five LM architectures (src/repro_torch/configs)
+LM_ARCHS = ("phi4-mini-3.8b", "qwen1.5-4b", "qwen3-moe-30b-a3b", "dbrx-132b",
+            "nemotron-4-340b")
+#: greedy decode steps after a REDUCED prompt, card against CPU
+LM_XDEV_DECODE = 8
+#: greedy decode steps after the 32k prompt; decode steps timed in
+#: decode_32k and long_500k; long_500k's prompt (its 500k prefill, the
+#: quadratic case, is skipped as configs/base.py's shape note says)
+LM_PROMPT_DECODE, LM_TIMED_DECODE, LM_LONG_PROMPT = 32, 8, 4_096
+LM_TRAIN_STEPS = 3
+#: bytes kept free beside an LM shape's bound: the allocator's slack,
+#: cuBLAS workspaces and the tensors no part of the bound names; and, for
+#: a train step, 8 B more a parameter (a phi4-mini step at 6 layers held
+#: over 81.6 GB against its 73.3 GB bound: the functional optimizer's
+#: transients beyond the ones the bound counts)
+LM_SLACK, LM_TRAIN_HEADROOM = 8e9, 8
+
+
+@contextlib.contextmanager
+def lm_f64_evaluation():
+    """The port's LM evaluated in f64 on the CPU: every bf16 step and every
+    f32 upcast (``Tensor.float``) becomes f64."""
+    from unittest import mock
+
+    from repro_torch.models import transformer as PT
+
+    with mock.patch.object(PT, "BF16", torch.float64), mock.patch.object(
+            torch.Tensor, "float", lambda self, *a, **k: self.double()):
+        yield
+
+
+def lm_value_and_grad(params, batch, cfg):
+    from repro_torch.models import transformer as PT
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, _ = PT.loss_fn(tree_unflatten(params, leaves), batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.double().cpu() for g in grads]
+
+
+def _cosines(a, b) -> np.ndarray:
+    return np.array([float((x.flatten() @ y.flatten())
+                           / (x.norm() * y.norm())) for x, y in zip(a, b)])
+
+
+def lm_cross_device(args) -> list[str]:
+    """Each arch's REDUCED config, one set of parameters, card against CPU
+    at the CPU tests' bars: a train step's loss (1e-3 relative) and
+    gradients (each leaf at cosine ≥ 0.999, or, where the CPU's bf16 leaf
+    lies further than that from the CPU's f64 evaluation, as close to the
+    CPU's as that); ``forward``'s logits (rtol 1.6e-2, atol
+    1.6e-2·max|logits|); a prompt's ``prefill`` and LM_XDEV_DECODE greedy
+    ``decode_step``s fed the CPU's tokens: logits at the same bar, and the
+    card's greedy token equal to the CPU's wherever the CPU's top-2 margin
+    exceeds twice that atol.  Returns the report."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.batches import make_batch
+    from repro_torch.models import transformer as PT
+    from repro_torch.train.optimizer import tree_map
+
+    on_card = lambda t: tree_map(lambda x: x.cuda(), t)
+    report = []
+    for name in LM_ARCHS:
+        arch = get_arch(name)
+        cfg = arch.reduced
+        params = PT.init(torch.Generator().manual_seed(args.seed), cfg, "cpu")
+        rng = np.random.default_rng(args.seed)
+        batch = make_batch(rng, arch, arch.shape("train_4k"), device="cpu")
+        prompt = make_batch(rng, arch, arch.shape("prefill_32k"),
+                            device="cpu")["tokens"]
+        lc, gc = lm_value_and_grad(params, batch, cfg)
+        lg, gg = lm_value_and_grad(on_card(params), on_card(batch), cfg)
+        cos = _cosines(gg, gc)
+        bar = np.full_like(cos, XDEV_GRAD_COS)
+        if cos.min() < XDEV_GRAD_COS:
+            with lm_f64_evaluation():
+                _, truth = lm_value_and_grad(
+                    tree_map(lambda x: x.double(), params), batch, cfg)
+            bar = np.minimum(bar, _cosines(gc, truth))
+        with torch.no_grad():
+            fc, _ = PT.forward(params, batch["tokens"], cfg)
+            fg, _ = PT.forward(on_card(params), batch["tokens"].cuda(), cfg)
+            logit_need = _atol_need(fg.cpu(), fc)
+            steps = []
+            cache_len = prompt.shape[1] + LM_XDEV_DECODE
+            lgc, cc = PT.prefill(params, prompt, cfg, cache_len=cache_len)
+            lgg, cg = PT.prefill(on_card(params), prompt.cuda(), cfg,
+                                 cache_len=cache_len)
+            for i in range(LM_XDEV_DECODE + 1):
+                steps.append((lgc, lgg.cpu()))
+                if i == LM_XDEV_DECODE:
+                    break
+                tok = torch.argmax(lgc, dim=-1).to(torch.int32)
+                pos = prompt.shape[1] + i
+                lgc, cc = PT.decode_step(params, cc, tok, pos, cfg)
+                lgg, cg = PT.decode_step(on_card(params), cg, tok.cuda(), pos,
+                                         cfg)
+        need = max(_atol_need(g, c) for c, g in steps)
+        flips = 0
+        for c, g in steps:
+            atol = XDEV_BF16_TOL * float(c.abs().max())
+            top2 = torch.topk(c, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * atol
+            flips += int((sure & (torch.argmax(g, -1) != torch.argmax(c, -1))
+                          ).sum())
+        f_bar = XDEV_BF16_TOL * float(fc.abs().max())
+        s_bar = min(XDEV_BF16_TOL * float(c.abs().max()) for c, _ in steps)
+        ok = (abs(lg - lc) <= XDEV_LOSS_RTOL * abs(lc)
+              and bool((cos >= bar).all()) and logit_need <= f_bar
+              and need <= s_bar and flips == 0)
+        report.append(
+            f"{name}: loss {lg:.5f} vs {lc:.5f}; gradient leaves' cosine "
+            f"min {cos.min():.5f} (bar min {bar.min():.5f}); logits need "
+            f"atol {logit_need:.3g} of {f_bar:.3g}; prefill + "
+            f"{LM_XDEV_DECODE} greedy steps need atol {need:.3g} of "
+            f"{s_bar:.3g}, sure greedy tokens that differ {flips}")
+        if not ok:
+            print("[lm] cuda vs cpu: " + "; ".join(report))
+            raise AssertionError(f"{name}: the card and the CPU disagree")
+    return report
+
+
+def _atol_need(got, want) -> float:
+    """The atol ``got`` needs beside rtol 1.6e-2·|want|."""
+    return max(0.0, float(((got - want).abs()
+                           - XDEV_BF16_TOL * want.abs()).max()))
+
+
+def rope_ulps() -> str:
+    """cos/sin of RoPE's angles on the card against the CPU's, at the last
+    positions of the 32k and 500k shapes (head dim 128)."""
+    from repro_torch.models.layers import rope_angles
+
+    n = 524_288
+    cc, sc = rope_angles(128, n, device="cpu")
+    cg, sg = (t.cpu() for t in rope_angles(128, n, device="cuda"))
+    out = []
+    for pos in (32_767, n - 1):
+        d = max(float((cg[pos] - cc[pos]).abs().max()),
+                float((sg[pos] - sc[pos]).abs().max()))
+        same = float(((cg[pos] == cc[pos]) & (sg[pos] == sc[pos])).float()
+                     .mean())
+        out.append(f"pos {pos}: max |card - CPU| {d:.3g}, {same:.3f} of "
+                   "the 64 frequencies equal")
+    whole = max(float((cg - cc).abs().max()), float((sg - sc).abs().max()))
+    return "; ".join(out) + f"; over all {n} positions {whole:.3g}"
+
+
+def lm_bound(cfg, shape, b: int) -> tuple[float, list]:
+    """An exact lower bound of the bytes that an LM shape's request holds
+    at one moment, and its parts.  Training, when ``scale_by_adam`` forms
+    its updates: the f32 parameters, the gradients and their clipped copy,
+    the old and new Adam moments, and Adam's denominator, one temporary
+    and the updates (40 B a parameter in all).  Serving: the f32
+    parameters and the bf16 KV caches, with the largest of the prompt's
+    attention (one q chunk's tile: the f32 scores, their softmax and its
+    bf16 copy), a MoE layer over the prompt (its dispatch buffer and
+    expert activations: for SwiGLU the input and gate products, two of
+    σ's temporaries and σ itself), and a decode step's attention (a
+    layer's K in f32, and above batch 1 that copy laid out for the
+    product)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as PT
+    from repro_torch.models.layers import param_count
+
+    n = param_count(PT.lm_spec(cfg))
+    hd, kv, h = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_heads
+    s = shape.dims["seq_len"]
+    parts = [("params f32", 4 * n)]
+    if shape.kind == "lm_train":
+        parts += [("gradients and their clipped copy", 8 * n),
+                  ("old and new Adam moments", 16 * n),
+                  ("Adam's denominator, a temporary and the updates",
+                   12 * n)]
+        return float(sum(v for _, v in parts)), parts
+    prompt = (s if shape.kind == "lm_prefill" else
+              LM_LONG_PROMPT if shape.name == "long_500k" else 0)
+    cache_len = s + LM_PROMPT_DECODE if shape.kind == "lm_prefill" else s
+    parts.append(("KV caches bf16", 4 * cfg.n_layers * b * cache_len * kv
+                  * hd))
+    decode = ("a decode step's K operand",
+              (8 if b > 1 else 4) * b * cache_len * kv * hd)
+    moments = [decode]
+    if prompt:
+        moments.append(("prompt attention tile", 10 * b * h
+                        * A._q_chunk(cfg, prompt) * prompt))
+    if prompt and cfg.moe:
+        e, k = cfg.moe.n_experts, cfg.moe.top_k
+        cap = int(cfg.moe.capacity_factor * b * prompt * k / e)
+        acts = 5 if cfg.ffn == "swiglu" else 2
+        moments.append(("MoE dispatch buffer and expert activations",
+                        2 * e * cap * (cfg.d_model + acts * cfg.d_ff)))
+    parts.append(max(moments, key=lambda m: m[1]))
+    return float(sum(v for _, v in parts)), parts
+
+
+def lm_cut(cfg, shape, start_batch: int, free: float):
+    """The batch and depth an LM shape runs at: the full depth at the
+    largest batch ≤ ``start_batch`` whose bound fits ``free`` (less
+    LM_SLACK, and LM_TRAIN_HEADROOM a parameter for a train step); at
+    batch 1 (or the config's microbatch count) the depth is cut a layer
+    at a time.  Returns (cut config, batch, bound, parts), the
+    config None where one layer does not fit."""
+    train = shape.kind == "lm_train"
+    low = cfg.train_microbatches if train else 1
+    for layers in range(cfg.n_layers, 0, -1):
+        cut = dataclasses.replace(cfg, n_layers=layers)
+        for b in range(start_batch, low - 1, -low):
+            need, parts = lm_bound(cut, shape, b)
+            headroom = LM_TRAIN_HEADROOM * parts[0][1] / 4 if train else 0
+            if need + LM_SLACK + headroom <= free:
+                return cut, b, need, parts
+    need, parts = lm_bound(dataclasses.replace(cfg, n_layers=1), shape, low)
+    return None, low, need, parts
+
+
+def _parts(parts) -> str:
+    return ", ".join(f"{name} {v / 1e9:.2f} GB" for name, v in parts)
+
+
+def lm_serve(name, cfg, shape, params, b, seed) -> dict:
+    """One FULL-width serving request: ``prefill_32k`` (the prompt, then
+    LM_PROMPT_DECODE greedy steps), ``decode_32k`` (LM_TIMED_DECODE steps
+    against a 32,768-slot cache of random rows) or ``long_500k``
+    (LM_LONG_PROMPT tokens of prompt into a 524,288-slot cache, then
+    LM_TIMED_DECODE greedy steps).  Returns the times, the peak and the
+    logits of every step."""
+    from repro_torch.models import transformer as PT
+
+    s = shape.dims["seq_len"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {"logits": []}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        if shape.name == "decode_32k":
+            cache = PT.init_cache(cfg, b, s, device="cuda")
+            for c in cache:
+                c.normal_(generator=gen)
+            tok = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            first, steps = s - LM_TIMED_DECODE, LM_TIMED_DECODE
+            out["prefill_ms"] = None
+        else:
+            prompt = s if shape.kind == "lm_prefill" else LM_LONG_PROMPT
+            cache_len = s + LM_PROMPT_DECODE if shape.kind == "lm_prefill" \
+                else s
+            toks = torch.randint(0, cfg.vocab_size, (b, prompt),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = PT.prefill(params, toks, cfg, cache_len=cache_len)
+            torch.cuda.synchronize()
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            out["prefill_tokens"] = b * prompt
+            out["logits"].append(logits)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            first = prompt
+            steps = (LM_PROMPT_DECODE if shape.kind == "lm_prefill"
+                     else LM_TIMED_DECODE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = PT.decode_step(params, cache, tok, first + i, cfg)
+            out["logits"].append(logits)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    out["steps"] = steps
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not all(bool(torch.isfinite(x).all()) for x in out["logits"]):
+        raise AssertionError(f"{name} {shape.name}: non-finite logits")
+    return out
+
+
+def lm_train(name, cfg, b, seq_len, seed) -> dict:
+    """LM_TRAIN_STEPS ``adamw`` steps on ``b`` sequences of ``seq_len``
+    tokens in the config's ``train_microbatches``; ms a step, the tokens a
+    step, the losses and the peak."""
+    from repro_torch.models import transformer as PT
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = PT.init(gen, cfg, "cuda")
+    tx = O.adamw(3e-4, weight_decay=0.1, max_grad_norm=1.0)
+    state = {"params": params, "opt": tx.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step = trainer.make_train_step(lambda p, bt: PT.loss_fn(p, bt, cfg), tx,
+                                   microbatches=cfg.train_microbatches)
+    toks = torch.randint(0, cfg.vocab_size, (b, seq_len), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}     # make_batch's proxy
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} train_4k: non-finite loss")
+    return {"ms": ms, "losses": losses, "tokens": b * seq_len,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def lm_full_runs(args, smi: str) -> None:
+    """Every arch × LM shape at the config's published widths, with
+    parameters random from the seed, at the batch and depth ``lm_cut``
+    lets fit in the free memory; long_500k's request twice, its logits
+    held equal bit for bit."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as PT
+
+    gb = 1e9
+    for name in LM_ARCHS:
+        arch = get_arch(name)
+        cfg = arch.model
+        for shape in arch.shapes:
+            dims = shape.dims
+            # prefill_32k and long_500k serve one prompt, decode_32k the
+            # largest batch that fits, train_4k a sequence a microbatch
+            start = {"decode_32k": dims["global_batch"],
+                     "train_4k": cfg.train_microbatches}.get(shape.name, 1)
+            torch.cuda.empty_cache()
+            free = torch.cuda.mem_get_info()[0]
+            cut, b, need, parts = lm_cut(cfg, shape, start, free)
+            head = f"[lm] {name} {shape.name} {dims}"
+            bound = f"bound {need / gb:.1f} GB ({_parts(parts)})"
+            if cut is None:
+                print(f"{head}: skipped at batch {b} and one layer, {bound} "
+                      f"with {free / gb:.1f} GB free; card {smi}")
+                continue
+            line = (f"{head}: batch {b}"
+                    + (f" (cut from {dims['global_batch']})"
+                       if b != dims["global_batch"] else "")
+                    + f", {cut.n_layers} of {cfg.n_layers} layers; ")
+            if shape.kind == "lm_train":
+                r = lm_train(name, cut, b, dims["seq_len"], args.seed)
+                line += (
+                    f"{cut.train_microbatches} microbatches; {_ms(r['ms'])} "
+                    f"a step (the first warms the allocator and cuBLAS up), "
+                    f"{r['tokens'] / statistics.mean(r['ms'][1:]) * 1e3:.0f}"
+                    f" tokens/s after it; loss "
+                    f"{[round(v, 4) for v in r['losses']]}")
+            else:
+                params = PT.init(torch.Generator(device="cuda").manual_seed(
+                    args.seed), cut, "cuda")
+                r = lm_serve(name, cut, shape, params, b, args.seed)
+                if r["prefill_ms"] is not None:
+                    rate = r["prefill_tokens"] / r["prefill_ms"] * 1e3
+                    line += (f"prefill {r['prefill_ms']:.1f} ms ({rate:.0f} "
+                             "tokens/s), ")
+                line += (f"decode {r['decode_ms']:.2f} ms a token step over "
+                         f"{r['steps']} steps ({b / r['decode_ms'] * 1e3:.0f}"
+                         f" tokens/s)")
+                if shape.name == "long_500k":
+                    again = lm_serve(name, cut, shape, params, b, args.seed)
+                    same = all(torch.equal(x.view(torch.int32),
+                                           y.view(torch.int32))
+                               for x, y in zip(r["logits"], again["logits"]))
+                    line += (f"; a second run of the request: logits of all "
+                             f"{len(r['logits'])} steps "
+                             f"{'equal bit for bit' if same else 'DIFFER'}")
+                    if not same:
+                        raise AssertionError(f"{name}: serving does not "
+                                             "repeat")
+                    del again
+                del params
+            print(f"{line}; peak {r['peak_gb']:.2f} GB; {bound}; card {smi}")
+            del r
+
+
+def phase_lm(args, smi: str) -> None:
+    """The LM family: REDUCED configs card against CPU, RoPE's angles on
+    both, then every arch × shape at FULL widths.  The five kernels'
+    launch counts are read before and after: the LM path launches none."""
+    t_phase = time.perf_counter()
+    before = launch_counts()
+    report = lm_cross_device(args)
+    print(f"[lm] cuda vs cpu (REDUCED configs; logits rtol {XDEV_BF16_TOL}, "
+          f"atol {XDEV_BF16_TOL}·max|logits|): " + "; ".join(report))
+    print(f"[lm] RoPE angles, card vs CPU: {rope_ulps()}")
+    t_full = time.perf_counter()
+    lm_full_runs(args, smi)
+    print(f"[lm] FULL widths {time.perf_counter() - t_full:.1f} s")
+    after = launch_counts()
+    risen = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    print(f"[lm] kernel launches during the phase: "
+          f"{risen or 'none of ' + str(sorted(after))}")
+    if risen:
+        raise AssertionError(f"the LM path launched kernels: {risen}")
+    print(f"[lm] phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1_000_000)
@@ -3033,6 +3519,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     models_counts = phase_models(args)
     lap("models")
+    phase_lm(args, smi)
+    lap("lm")
     # each kernel's launches on the path that drives it (the IVF kernel's
     # on the resident and the tiered IVF paths together), plus the sharded,
     # off-path and model phases

@@ -193,6 +193,46 @@ def apply_rope_at(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                    sin[positions][:, None, None, :].to(x.dtype))
 
 
+def _const(c: float, dtype) -> float:
+    """``c`` rounded to ``dtype``, as a weakly typed constant is in JAX."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
+class _Silu(torch.autograd.Function):
+    """x · σ(x) with σ(x) = 1/(1 + e^−x), every op rounded to x's dtype,
+    as XLA evaluates ``jax.nn.silu``; the backward is JAX's too,
+    g·σ + (g·x)·(σ·(1 − σ)), from the logistic's own derivative.  (Autograd
+    through the forward's ops rounds e^−x and 1/u separately and, in bf16,
+    moves half of the gradients, some by 2×; ``F.silu`` rounds its
+    forward once and moves a third of the values by an ulp.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``, forward and backward, in ``repro``'s roundings."""
+    return _Silu.apply(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` in its default tanh form, op for op, with the
+    constants in x's dtype: 0.5·x·(1 + tanh(√(2/π)·(x + 0.044715·x³))).
+    (``F.gelu``'s default is the erf form; its tanh form rounds once.)"""
+    cdf = 0.5 * (1.0 + torch.tanh(
+        _const(math.sqrt(2 / math.pi), x.dtype)
+        * (x + _const(0.044715, x.dtype) * (x * x * x))))
+    return x * cdf
+
+
 def squared_relu(x: torch.Tensor) -> torch.Tensor:
     """Primer/nemotron activation."""
     r = torch.relu(x)

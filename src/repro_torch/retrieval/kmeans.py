@@ -30,12 +30,17 @@ def assign(x: torch.Tensor, centroids: torch.Tensor,
 
 def _update(x: torch.Tensor, labels: torch.Tensor, n_clusters: int,
             old: torch.Tensor) -> torch.Tensor:
-    """Cluster means; a cluster that went empty keeps its old centroid."""
-    sums = torch.zeros((n_clusters, x.shape[1]), dtype=x.dtype,
-                       device=x.device).index_add_(0, labels, x)
-    counts = torch.zeros((n_clusters,), dtype=x.dtype,
-                         device=x.device).index_add_(
-        0, labels, torch.ones_like(x[:, 0]))
+    """Cluster means; a cluster that went empty keeps its old centroid.
+
+    Each cluster's rows are added one after another in row order: a stable
+    sort by label, then a segment reduce that walks each segment in
+    sequence.  The sums are the bits of a sequential ``index_add_`` (the
+    CPU's) on every device and run; the card's ``index_add_`` adds with
+    atomics, in an order that changes from run to run."""
+    counts = torch.bincount(labels, minlength=n_clusters)
+    order = torch.argsort(labels, stable=True)
+    sums = torch.segment_reduce(x[order], "sum", lengths=counts, axis=0)
+    counts = counts.to(x.dtype)
     new = sums / torch.clamp(counts[:, None], min=1.0)
     return torch.where(counts[:, None] > 0, new, old)
 

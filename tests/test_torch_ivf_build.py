@@ -114,3 +114,55 @@ def test_install_routed_keeps_the_router(kb):
     with pytest.raises(ValueError, match="one cluster id"):
         again._install_routed(built.storage, built._labels[:5],
                               built.centroids, built._dim)
+
+
+def _update_by_index_add(x, labels, n_clusters, old):
+    """k-means' update as the port had it before its build repeated on the
+    card: f32 ``index_add_`` (sequential on the CPU, atomic on the card)."""
+    sums = torch.zeros((n_clusters, x.shape[1]), dtype=x.dtype).index_add_(
+        0, labels, x)
+    counts = torch.zeros((n_clusters,), dtype=x.dtype).index_add_(
+        0, labels, torch.ones_like(x[:, 0]))
+    new = sums / torch.clamp(counts[:, None], min=1.0)
+    return torch.where(counts[:, None] > 0, new, old)
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_kmeans_update_keeps_the_cpu_bits(seed):
+    """The fixed-order segment sum gives the bits of the sequential
+    ``index_add_``, wide and narrow rows, with empty clusters (which keep
+    their old centroid) and values of mixed scale."""
+    from repro_torch.retrieval.kmeans import _update
+
+    g = torch.Generator().manual_seed(seed)
+    n, k, d = (20_000, 64, 37) if seed % 2 else (5_000, 256, 128)
+    x = torch.randn(n, d, generator=g) * torch.rand(n, 1, generator=g) * 100
+    labels = torch.randint(0, k, (n,), generator=g)
+    labels[labels == 3] = 4                     # cluster 3 empty
+    labels[labels == k - 1] = 0                 # and the last
+    old = torch.randn(k, d, generator=g)
+    got = _update(x, labels, k, old)
+    want = _update_by_index_add(x, labels, k, old)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[3], old[3]) and torch.equal(got[k - 1], old[k - 1])
+
+
+@pytest.mark.parametrize("method,dim", [("pca_int8", 32),
+                                        ("pca_rot_onebit", 45)])
+def test_ivf_build_keeps_the_cpu_bits(kb, monkeypatch, method, dim):
+    """The gated IVF recipe (kmeans++, balanced lists) built on the CPU
+    gives the centroids, list assignment and lists of the ``index_add_``
+    update, bit for bit."""
+    from repro_torch.retrieval import kmeans
+
+    spec = p_api.IndexSpec(method=method, dim=dim, post=False, ivf=(16, 4),
+                           kmeans_iters=6, kmeans_init="++",
+                           balanced_lists=True, backend="torch")
+    docs, queries = np.asarray(kb.docs), np.asarray(kb.queries)
+    new = p_api.build_index(spec, docs, queries, device="cpu")
+    monkeypatch.setattr(kmeans, "_update", _update_by_index_add)
+    old = p_api.build_index(spec, docs, queries, device="cpu")
+    assert torch.equal(new.centroids.view(torch.int32),
+                       old.centroids.view(torch.int32))
+    np.testing.assert_array_equal(new._labels, old._labels)
+    assert torch.equal(new.lists, old.lists)
