@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's exact, IVF, sharded, tiered, served,
-off-path and mutable paths, and its model and LM paths, on one NVIDIA GPU.
+off-path and mutable paths, its model and LM paths, and its launch path
+(the paper's sharded KB search step, the dry run), on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-docs 1000000] [--n-queries 2048] [--seed 0]
 
@@ -175,7 +176,31 @@ Phases, each printed as it runs:
    else is skipped; the cut and the bound's parts are printed beside ms
    a step, tokens/s, prefill ms, decode ms a token and the peak.  The
    five kernels' launch counts do not rise: the LM path launches none.
-12. the last two lines: ``{"kernels": [...]}`` and the device line.
+12. launch — ``repro_torch.launch``: the paper's pre+post recipe
+   [CenterNorm, PCA(128), CenterNorm, Int8Quantizer] fitted on the main
+   KB, and ``fit_pca_distributed`` over 4 "data" shards of it against
+   ``PCA.fit`` (each |cos| within 1e-3 of 1).  The search_exact (2.1M
+   docs) and search_50m (49.7M) KBs drawn on the card from the main KB's
+   population in 1M-row chunks, each encoded by fused_quantize (padded to
+   a multiple of 512 rows; 6.4 GB of codes at 49.7M; the float KB is
+   never whole), and 6,000 queries searched at k = 16 through the
+   kb_search bundle with no mesh (naive and two_stage) and on the 16×16
+   and 2×16×16 meshes of cuda:0: s a batch, q/s, the index's bytes, ids
+   and score bits equal across the ways (naive skipped at 49.7M, its
+   scores printed in GB); the same at 1-bit on search_exact; two_stage at
+   131,072 docs on the kernels against the CPU's plain versions.  Every
+   cell's REDUCED bundle once on cuda:0.  The compressed exchange of the
+   "100m" retriever's parameter count of floats over a 1×8 "data" mesh
+   (ms an exchange, bytes gathered against f32's 4n) and 20 steps of
+   error feedback at repro's bars (int8 < 0.02, 1-bit < 0.35).  An
+   elastic resume of a REDUCED two-tower run from data=8 onto
+   ``plan_remesh``'s 4 devices (losses against the uninterrupted run).
+   The dry run's 84 rows (every cell × both meshes: FLOPs, bytes, model
+   FLOPs, arguments a position, fits, the three terms, the bottleneck at
+   the card's rates), run in the background from the end of the
+   kernel phase (earlier, it skewed the kernel phase's timings).  The
+   int8_ip, topk_blocks, binary_ip and fused_quantize counts must rise.
+13. the last two lines: ``{"kernels": [...]}`` and the device line.
 
 Any failure raises before the last line, and the exit code is non-zero.
 """
@@ -194,6 +219,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -218,6 +244,7 @@ from repro_torch.kernels.topk_blocks.kernel import topk_blocks  # noqa: E402
 from repro_torch.kernels.topk_blocks.ops import (  # noqa: E402
     default_block_d, streaming_topk)
 from repro_torch.kernels.topk_blocks.ref import topk_blocks_ref  # noqa: E402
+from repro_torch.launch.roofline import card_rates  # noqa: E402
 
 Q, D_MAIN, D_INT8, W_ONEBIT = 256, 1_000_000, 128, 8
 BATCH, K = 256, 10
@@ -244,23 +271,6 @@ TIERED_NPROBES, TIERED_BATCHES = (16, 64), 4
 #: the float and fp16 tiered check's docs
 TIERED_SMALL_DOCS = 32_768
 SEG_ADDS, SEG_DEAD, SEG_BATCHES = 16_384, 100, 2
-
-#: name fragment → (bytes/s, bf16 FLOP/s, int8 OP/s, f32 FLOP/s), dense
-#: rates from NVIDIA's data sheets; the SXM part is the default
-CARDS = {
-    "H100 PCIe": (2.0e12, 756e12, 1513e12, 51e12),
-    "H100 NVL": (3.9e12, 835e12, 1671e12, 60e12),
-    "H200": (4.8e12, 989e12, 1979e12, 67e12),
-    "H100": (3.35e12, 989e12, 1979e12, 67e12),
-}
-
-
-def card_rates(name: str) -> tuple[float, float, float, float]:
-    for frag, rates in CARDS.items():
-        if frag in name:
-            return rates
-    return CARDS["H100"]
-
 
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, after one warm-up."""
@@ -1006,43 +1016,48 @@ def _search_batches(index, queries, k, **kw):
     return torch.cat(vals), torch.cat(ids), secs
 
 
-def profile_batches(indexes, queries, **kw) -> None:
-    """Device time by kernel for one search batch per index (torch.profiler)
-    and the device's busy share of the batch's wall time.  A warm-up step
+def profile_call(tag: str, fn) -> None:
+    """Device time by kernel for one call of ``fn`` (torch.profiler) and
+    the device's busy share of the call's wall time.  A warm-up call
     inside the profiler comes first: without it the trace lost the first
     kernels of short batches."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    for name, index in indexes.items():
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            index.search(queries[:BATCH], K, **kw)
-            torch.cuda.synchronize()
-            prof.step()
-            t0 = time.perf_counter()
-            index.search(queries[:BATCH], K, **kw)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
-        rows = []
-        for evt in prof.key_averages():
-            # kernels only: an operator's row repeats its kernels' time, and
-            # the schedule's step row spans the whole step
-            if evt.device_type != torch.autograd.DeviceType.CUDA or \
-                    evt.key.startswith("ProfilerStep"):
-                continue
-            dev_us = getattr(evt, "self_device_time_total",
-                             getattr(evt, "self_cuda_time_total", 0))
-            if dev_us > 0:
-                rows.append((dev_us / 1e3, evt.key, evt.count))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        top = "; ".join(f"{key[:60]} x{n} {ms:.3f} ms" for ms, key, n in rows[:8])
-        print(f"[profile] {name}: batch {BATCH} wall {wall_ms:.3f} ms "
-              f"(profiled), device {busy:.3f} ms, busy share "
-              f"{busy / wall_ms:.3f}; {top}")
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    rows = []
+    for evt in prof.key_averages():
+        # kernels only: an operator's row repeats its kernels' time, and
+        # the schedule's step row spans the whole step
+        if evt.device_type != torch.autograd.DeviceType.CUDA or \
+                evt.key.startswith("ProfilerStep"):
+            continue
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, evt.key, evt.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    top = "; ".join(f"{key[:60]} x{n} {ms:.3f} ms" for ms, key, n in rows[:8])
+    print(f"[profile] {tag}: wall {wall_ms:.3f} ms (profiled), device "
+          f"{busy:.3f} ms, busy share {busy / wall_ms:.3f}; {top}")
+
+
+def profile_batches(indexes, queries, **kw) -> None:
+    """:func:`profile_call` on one search batch per index."""
+    for name, index in indexes.items():
+        profile_call(f"{name}: batch {BATCH}",
+                     lambda: index.search(queries[:BATCH], K, **kw))
 
 
 def start_kbs(args, pool):
@@ -3472,6 +3487,538 @@ def phase_lm(args, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# launch: the paper's sharded KB search step at full scale, the dry run,
+# every cell for real, the compressed exchange, distributed PCA, elastic
+# resume
+# ---------------------------------------------------------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+#: rows a chunk of the launch KB is drawn and encoded in
+LAUNCH_CHUNK = 1_000_000
+#: the launch KB's rows are padded to a multiple of the 2×16×16 mesh
+LAUNCH_PAD = 512
+#: the two_stage step held against the CPU's plain versions
+LAUNCH_CHECK_DOCS, LAUNCH_CHECK_Q = 131_072, 500
+#: error feedback over 20 steps, at repro's bars
+EXCHANGE_STEPS = 20
+EXCHANGE_BARS = {"int8": 0.02, "onebit": 0.35}
+#: elastic resume: steps, the step the checkpoint is taken at, the bar of
+#: a short Adam trajectory (ROADMAP §C: loss history within 5e-3)
+ELASTIC_STEPS, ELASTIC_AT, ELASTIC_RTOL = 10, 5, 5e-3
+DRYRUN_DIR = os.path.join(HERE, "build", "dryrun")
+DRYRUN_OUT = os.path.join(DRYRUN_DIR, "chip_smoke.jsonl")
+DRYRUN_WORKERS = 4
+
+
+class BackgroundDryRun:
+    """The dry run of every cell × both meshes
+    (``repro_torch.launch.dryrun --all``: the cells shared by a few
+    processes, at lower priority), run beside the card's phases: its
+    passes are host work over meta tensors.  It starts after the kernel
+    phase, whose CUDA-event times it would otherwise skew (host threads
+    that enqueue the timed launches compete with it).  The workers see no
+    CUDA device; the card's name and memory are passed to them."""
+
+    def __init__(self) -> None:
+        self.proc: Optional[subprocess.Popen] = None
+
+    def start(self) -> None:
+        props = torch.cuda.get_device_properties(0)
+        os.makedirs(DRYRUN_DIR, exist_ok=True)
+        if os.path.exists(DRYRUN_OUT):
+            os.remove(DRYRUN_OUT)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join(
+                       [os.path.join(HERE, "src")]
+                       + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.log = open(os.path.join(DRYRUN_DIR, "chip_smoke.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "both", "--workers", str(DRYRUN_WORKERS), "--card",
+             props.name, "--hbm", str(props.total_memory), "--out",
+             DRYRUN_OUT],
+            env=env, stdout=self.log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        # the sweep and the cell processes it starts run below the card's
+        # phases' priority
+        os.setpriority(os.PRIO_PGRP, self.proc.pid, 10)
+        self.started = time.perf_counter()
+
+    def stop(self) -> None:
+        """End the sweep and every process it started."""
+        if self.proc is None:
+            return
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+                self.proc.wait()
+        self.log.close()
+        self.proc = None
+
+
+def launch_recipe(kb, seed: int):
+    """The paper's pre+post recipe [CenterNorm, PCA(128), CenterNorm,
+    Int8Quantizer] fitted on the main KB: its doc-side and query-side
+    fused parameters (μ₁, W, μ₂′, scale, zero)."""
+    from repro_torch.core import (CenterNorm, CompressionPipeline,
+                                  Int8Quantizer, PCA)
+    from repro_torch.kernels.fused_quantize.ops import params_from_pipeline
+
+    pipe = CompressionPipeline([CenterNorm(), PCA(128), CenterNorm(),
+                                Int8Quantizer()])
+    pipe.fit(kb.docs, kb.queries,
+             rng=torch.Generator(device="cuda").manual_seed(seed))
+    return params_from_pipeline(pipe, "docs"), \
+        params_from_pipeline(pipe, "queries")
+
+
+def launch_kb(pop, n_rows: int, doc_params, seed: int, onebit: bool):
+    """``n_rows`` docs of the main KB's population, drawn on the card in
+    chunks of 1M rows from a cuda generator seeded ``seed`` (the same rows
+    for both storages) and encoded chunk by chunk: int8 codes by
+    ``fused_quantize``, 1-bit words as the signs of the same normalized
+    rows.  The float KB is never whole."""
+    from repro_torch.core.quantization import pack_bits
+    from repro_torch.data import draw_dpr_like_docs
+
+    mu1, w, mu2, scale, zero = doc_params
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    width, dt = (w.shape[1] // 32, torch.int32) if onebit \
+        else (w.shape[1], torch.uint8)
+    out = torch.empty((n_rows, width), dtype=dt, device="cuda")
+    for s in range(0, n_rows, LAUNCH_CHUNK):
+        x = draw_dpr_like_docs(pop, min(LAUNCH_CHUNK, n_rows - s), g)
+        out[s:s + x.shape[0]] = (
+            pack_bits(fused_normalize_ref(x, mu1, w, mu2)) if onebit
+            else fused_quantize(x, mu1, w, mu2, scale, zero))
+        del x
+    return out
+
+
+def _launch_ways(arch, shape, storage: str):
+    """(label, bundle) for the four ways the step is driven: no mesh
+    (naive and two_stage), the 16×16 and the 2×16×16 mesh, all on
+    cuda:0."""
+    from repro_torch.launch.mesh import make_production_mesh, rules_for_mesh
+    from repro_torch.launch.steps import build_step
+
+    def variant(topk_impl):
+        return dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, storage=storage, topk_impl=topk_impl))
+
+    ways = [("no mesh naive", variant("naive"), None),
+            ("no mesh two_stage", variant("two_stage"), None)]
+    for multi in (False, True):
+        mesh = make_production_mesh(multi_pod=multi, device="cuda:0")
+        ways.append(("x".join(map(str, mesh.devices.shape)),
+                     variant("two_stage"), mesh))
+    return [(label, build_step(a, shape, mesh, rules_for_mesh(mesh)
+                               if mesh is not None else None))
+            for label, a, mesh in ways]
+
+
+def launch_search(args, pop, doc_params, query_params, queries, smi):
+    """The paper's step at search_exact and search_50m, int8 (and 1-bit
+    at search_exact): every way's ids and score bits equal; then the
+    two_stage ranking held against the CPU's plain versions."""
+    from repro_torch.configs.registry import get_arch
+
+    arch = get_arch("paper-dpr")
+    mu1, w, mu2, scale, zero = query_params
+    index = {"mu1": mu1, "w": w, "mu2": mu2, "scale": scale, "zero": zero}
+    for shape_name, storage in (("search_exact", "int8"),
+                                ("search_exact", "onebit"),
+                                ("search_50m", "int8")):
+        shape = arch.shape(shape_name)
+        n_docs, k = shape.dims["n_docs"], shape.dims["k"]
+        n_rows = -(-n_docs // LAUNCH_PAD) * LAUNCH_PAD
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index["storage"] = launch_kb(pop, n_rows, doc_params,
+                                     args.seed + 1, storage == "onebit")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        st = index["storage"]
+        head = (f"[launch] kb_search {shape_name} {storage}: {n_docs:,} "
+                f"docs padded to {n_rows:,} (a multiple of the 2x16x16 "
+                f"mesh), index {st.numel() * st.element_size() / 1e9:.3f} "
+                f"GB, drawn and encoded in {build_s:.2f} s; "
+                f"{queries.shape[0]} queries at k = {k}")
+        print(head)
+        first = None
+        for label, bundle in _launch_ways(arch, shape, storage):
+            if label == "no mesh naive" and shape_name == "search_50m":
+                need = queries.shape[0] * n_rows * 4
+                print(f"[launch]   {label}: skipped, its (Q, D) f32 scores "
+                      f"alone take {need / 1e9:.0f} GB; card {smi}")
+                continue
+            batch = {"queries": queries}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals, ids = bundle.fn(index, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if first is None:
+                first = (label, vals, ids)
+                _checked(f"kb_search {label}", vals[:, :K], ids[:, :K],
+                         queries.shape[0], n_rows)
+                same = "the reference way"
+            else:
+                ok = (torch.equal(ids, first[2]) and torch.equal(
+                    vals.view(torch.int32), first[1].view(torch.int32)))
+                if not ok:
+                    raise AssertionError(f"kb_search {shape_name} {storage}"
+                                         f" {label} differs from "
+                                         f"{first[0]}")
+                same = f"ids and score bits equal to {first[0]}"
+            print(f"[launch]   {label}: {secs:.3f} s a batch of "
+                  f"{queries.shape[0]}, {queries.shape[0] / secs:.0f} q/s; "
+                  f"{same}; card {smi}")
+            del vals, ids
+            torch.cuda.empty_cache()
+        if shape_name == "search_exact":
+            for label, bundle in _launch_ways(arch, shape, storage)[::2]:
+                profile_call(f"kb_search {shape_name} {storage} {label}",
+                             lambda: bundle.fn(index, {"queries": queries}))
+            launch_check_cpu(index, queries, storage, k)
+        del first
+        index.pop("storage")
+        torch.cuda.empty_cache()
+
+
+def launch_check_cpu(index, queries, storage: str, k: int) -> None:
+    """The two_stage ranking over the first 131,072 docs on the card (the
+    kernels) against the same on the CPU (their plain versions), from the
+    same encoded queries."""
+    from repro_torch.launch.steps import encode_kb_queries, kb_search_topk
+
+    sub = dict(index, storage=index["storage"][:LAUNCH_CHECK_DOCS])
+    z = encode_kb_queries(sub, queries[:LAUNCH_CHECK_Q])
+    kw = dict(storage_kind=storage, topk_impl="two_stage", k=k,
+              doc_chunk=65_536)
+    got = kb_search_topk(sub, z, **kw)
+    want = kb_search_topk({n: t.cpu() for n, t in sub.items()}, z.cpu(),
+                          **kw)
+    ok, err = ranking_agrees(tuple(t.cpu() for t in got), want,
+                             exact=storage == "onebit")
+    print(f"[launch]   two_stage at {LAUNCH_CHECK_DOCS:,} docs, "
+          f"{LAUNCH_CHECK_Q} queries, card (kernels) vs CPU (plain "
+          f"versions): max |Δscore| {err:.3g}, "
+          f"{'ids and bits equal' if storage == 'onebit' else 'ids equal where apart'}"
+          f": {'ok' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError(f"kb_search {storage}: card and CPU disagree")
+
+
+def launch_dryrun(dryrun: BackgroundDryRun, smi: str) -> None:
+    """Wait for the background dry run and print its 84 rows."""
+    from repro_torch.launch.dryrun import all_cells, format_row
+
+    t0 = time.perf_counter()
+    rc = dryrun.proc.wait(timeout=900)
+    waited = time.perf_counter() - t0
+    wall = time.perf_counter() - dryrun.started
+    with open(DRYRUN_OUT) as f:
+        rows = [json.loads(line) for line in f]
+    order = {(a, s, mp): i for i, (a, s) in enumerate(all_cells())
+             for mp in (False, True)}
+    rows.sort(key=lambda r: (order.get((r["arch"], r["shape"],
+                                        r.get("multi_pod")), -1),
+                             r.get("multi_pod")))
+    bad = [r for r in rows if r.get("status") != "ok"]
+    for r in rows:
+        if r.get("status") == "ok":
+            print(format_row(r) + f"; card {smi}")
+    fits = sum(bool(r.get("fits_hbm")) for r in rows)
+    by = {}
+    for r in rows:
+        if r.get("status") == "ok":
+            by[r["bottleneck"]] = by.get(r["bottleneck"], 0) + 1
+    print(f"[launch] dry run: {len(rows)} rows ({len(rows) - len(bad)} ok) "
+          f"of {2 * len(all_cells())}, at "
+          f"{next((r['card'] for r in rows if 'card' in r), '?')} rates; arguments fit the card's memory in {fits}; bottleneck "
+          f"{by}; {DRYRUN_WORKERS} workers beside the phases after the "
+          f"kernel phase, {wall:.1f} s from their start, {waited:.1f} s "
+          f"waited here; "
+          f"card {smi}")
+    if rc != 0 or bad or len(rows) != 2 * len(all_cells()):
+        raise AssertionError(f"dry run: exit {rc}, failed rows "
+                             f"{[(r['arch'], r['shape']) for r in bad]}")
+
+
+def launch_cells(args) -> None:
+    """Every cell's REDUCED bundle once on cuda:0 (the smoke checks)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.batches import make_batch, reduce_dims
+    from repro_torch.launch.dryrun import all_cells
+    from repro_torch.launch.steps import build_step
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def mat(x, zeros=False):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if not zeros and x.dtype.is_floating_point:
+            return (torch.randn(x.shape, generator=g, device="cuda")
+                    * 0.02).to(x.dtype)
+        return torch.zeros(x.shape, dtype=x.dtype, device="cuda")
+
+    t0 = time.perf_counter()
+    ms = {}
+    for arch_name, shape_name in all_cells():
+        arch = get_arch(arch_name)
+        shape = arch.shape(shape_name)
+        bundle = build_step(arch, shape, None, None, reduced=True)
+        cargs = []
+        for a in bundle.abstract_args[:-1]:
+            if isinstance(a, dict) and "opt" in a:
+                cargs.append({"params": tree_map(mat, a["params"]),
+                              "opt": tree_map(lambda x: mat(x, True),
+                                              a["opt"]),
+                              "step": torch.zeros((), dtype=torch.int32,
+                                                  device="cuda")})
+            else:
+                cargs.append(tree_map(mat, a))
+        batch = make_batch(np.random.default_rng(42), arch, shape,
+                           reduced=True, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = bundle.fn(*cargs, batch)
+        torch.cuda.synchronize()
+        ms[f"{arch_name}:{shape_name}"] = (time.perf_counter() - t1) * 1e3
+        finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(out)
+                     if isinstance(x, torch.Tensor)
+                     and x.dtype.is_floating_point)
+        ok = finite
+        if shape.kind == "lm_train":
+            ok = ok and float(out[1]["loss"]) > 0
+        elif shape.kind == "lm_decode":
+            ok = ok and tuple(out[0].shape) == (
+                reduce_dims(shape)["global_batch"], arch.reduced.vocab_size)
+        elif shape.kind == "retrieval_cand":
+            ok = ok and out[0].shape[0] >= 1
+        if not ok:
+            raise AssertionError(f"{arch_name}:{shape_name} REDUCED on the "
+                                 "card: non-finite or misshapen output")
+    slow = sorted(ms.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[launch] every cell's REDUCED bundle on cuda:0: {len(ms)} of "
+          f"{len(all_cells())} finite with repro's shape checks, "
+          f"{time.perf_counter() - t0:.1f} s (first calls included; slowest "
+          + ", ".join(f"{n} {v:.0f} ms" for n, v in slow) + ")")
+
+
+def launch_exchange(args, smi: str) -> None:
+    """The compressed exchange over a 1×8 "data" mesh of cuda:0 at the
+    size of the "100m" retriever's parameter tree: ms an exchange and the
+    bytes gathered; then 20 steps of error feedback at repro's bars."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.layers import param_count
+    from repro_torch.models.recsys import two_tower_spec
+    from repro_torch.parallel.collectives import COUNTER
+    from repro_torch.parallel.compression_comm import (
+        init_residual, make_compressed_grad_exchange)
+
+    n = param_count(two_tower_spec(retriever_config()))
+    mesh = make_test_mesh(8, 1, device="cuda:0")
+    shards = mesh.shape["data"]
+
+    def draws(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [{"w": torch.randn(n, generator=g, device="cuda")}
+                for _ in range(shards)]
+
+    grads = draws(args.seed)
+    parts = []
+    for scheme in ("none", "int8", "onebit"):
+        ex = make_compressed_grad_exchange(scheme, "data")
+        res = None if scheme == "none" else [
+            init_residual(gr) for gr in grads]
+        COUNTER.reset()
+        ex(grads, res)
+        nbytes = COUNTER.total()
+        ms = cuda_ms(lambda: ex(grads, res), 5)
+        COUNTER.reset()
+        parts.append(f"{scheme} {ms:.2f} ms, {nbytes:,} B gathered "
+                     f"({nbytes / (4 * n):.4f} of f32's 4n)")
+    print(f"[launch] exchange of {n:,} floats (the 100m retriever's "
+          f"parameters) over 1x{shards} 'data' on cuda:0: "
+          + "; ".join(parts) + f"; card {smi}")
+    del grads
+    acc = {}
+    for scheme in ("none", "int8", "onebit"):
+        ex = make_compressed_grad_exchange(scheme, "data")
+        res, total = None, torch.zeros(n, device="cuda")
+        for t in range(EXCHANGE_STEPS):
+            grads = draws(args.seed + 1 + t)
+            if res is None and scheme != "none":
+                res = [init_residual(gr) for gr in grads]
+            mean, res = ex(grads, res)
+            total += mean["w"]
+            del grads, mean
+        acc[scheme] = total
+        del res
+    rel = {s: float(torch.linalg.vector_norm(acc[s] - acc["none"])
+                    / torch.linalg.vector_norm(acc["none"]))
+           for s in EXCHANGE_BARS}
+    ok = all(rel[s] < EXCHANGE_BARS[s] for s in rel)
+    print(f"[launch] error feedback, {EXCHANGE_STEPS} steps: relative error "
+          "of the accumulated mean " + ", ".join(
+              f"{s} {rel[s]:.4f} (bar {EXCHANGE_BARS[s]})" for s in rel)
+          + f": {'ok' if ok else 'FAILED'}")
+    COUNTER.reset()
+    if not ok:
+        raise AssertionError(f"compressed exchange: {rel}")
+    del acc
+    torch.cuda.empty_cache()
+
+
+def launch_pca(kb, smi: str) -> None:
+    """fit_pca_distributed over 4 "data" shards of the main KB against
+    PCA.fit on the same rows."""
+    from repro_torch.core.pca import PCA, fit_pca_distributed
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(8, 2, device="cuda:0")
+    shards = list(torch.chunk(kb.docs, mesh.shape["data"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist = fit_pca_distributed(shards, 128, mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    local = PCA(128).fit(kb.docs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cos = torch.abs(torch.sum(dist.state["components"]
+                              * local.state["components"], dim=0))
+    worst = float((1 - cos).abs().max())
+    print(f"[launch] fit_pca_distributed over {len(shards)} shards of the "
+          f"main KB {tuple(kb.docs.shape)}: {t1 - t0:.3f} s, PCA.fit "
+          f"{t2 - t1:.3f} s; max |1 − |cos|| over 128 components "
+          f"{worst:.2e} (bar 1e-3): {'ok' if worst <= 1e-3 else 'FAILED'};"
+          f" card {smi}")
+    if worst > 1e-3:
+        raise AssertionError("distributed PCA differs from the local fit")
+
+
+def launch_elastic(args) -> None:
+    """A REDUCED two-tower run checkpointed on a data=8 mesh, restored onto
+    plan_remesh's 4-device mesh and resumed at microbatch_scale × the
+    microbatches, against the uninterrupted run.  The single controller
+    runs a data-parallel step as one microbatch a data position (each
+    computes its loss, in-batch negatives included, over its share of the
+    global batch), so the old mesh takes 8 microbatches a step and the new
+    one 4 × microbatch_scale: the same global batch in the same shares."""
+    import functools
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.batches import make_batch, reduce_dims
+    from repro_torch.launch.steps import _ctx_loss, build_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import recsys as R
+    from repro_torch.parallel.sharding import SINGLE_POD_RULES
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.elastic import build_mesh, plan_remesh, \
+        reshard_state
+
+    arch = get_arch("two-tower-retrieval")
+    shape = arch.shape("train_batch")
+    cfg = arch.reduced
+    rules = SINGLE_POD_RULES
+    plan = plan_remesh({"data": 8, "model": 1}, 4)
+    old = build_mesh(plan.old_shape, "cuda:0")
+    new = build_mesh(plan.new_shape, "cuda:0")
+    tx = opt_lib.OptimizerConfig(lr=1e-3, total_steps=10000).build()
+
+    def step_on(mesh, micro):
+        return trainer.make_train_step(functools.partial(
+            _ctx_loss, R.two_tower_loss, cfg, mesh, rules), tx,
+            microbatches=micro)
+
+    micro_old = old.shape["data"]
+    micro_new = new.shape["data"] * plan.microbatch_scale
+    step_old, step_new = step_on(old, micro_old), step_on(new, micro_new)
+    specs_new = build_step(arch, shape, new, rules, reduced=True).in_specs[0]
+    state0 = trainer.init_state(
+        torch.Generator(device="cuda").manual_seed(args.seed),
+        lambda g: L.init_params(g, R.two_tower_spec(cfg), "cuda"), tx)
+    batches = [make_batch(np.random.default_rng(args.seed + i), arch, shape,
+                          reduced=True, device="cuda")
+               for i in range(ELASTIC_STEPS)]
+    s, want = state0, []
+    for b in batches:
+        s, m = step_old(s, b)
+        want.append(float(m["loss"]))
+    s, got = state0, []
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        for b in batches[:ELASTIC_AT]:
+            s, m = step_old(s, b)
+            got.append(float(m["loss"]))
+        ck = Checkpointer(tmp, keep=1)
+        ck.save(s, ELASTIC_AT, blocking=True)
+        restored = ck.restore(s, device="cuda")
+        same, _ = _leaves_equal(restored, s)
+        s = reshard_state(restored, specs_new, new)
+        for b in batches[ELASTIC_AT:]:
+            s, m = step_new(s, b)
+            got.append(float(m["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    ok = same and rel <= ELASTIC_RTOL and int(s["step"]) == ELASTIC_STEPS
+    print(f"[launch] elastic resume: {plan.old_shape} → {plan.new_shape}, "
+          f"microbatch_scale {plan.microbatch_scale} ({micro_old} → "
+          f"{micro_new} microbatches of the global batch "
+          f"{reduce_dims(shape)['batch']}); checkpoint at step {ELASTIC_AT} "
+          f"restored {'bit for bit' if same else 'CHANGED'}, resharded and "
+          f"resumed; losses {[round(x, 5) for x in got]} against the "
+          f"uninterrupted {[round(x, 5) for x in want]}: max rel "
+          f"{rel:.2e} (bar {ELASTIC_RTOL}"
+          f"{', bit for bit' if got == want else ''}): "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("elastic resume does not match")
+
+
+def phase_launch(args, smi: str, main_kb,
+                 dryrun: BackgroundDryRun) -> dict[str, int]:
+    """launch/: the paper's sharded KB search step at full scale on the
+    kernels, the dry run's rows, every cell's REDUCED bundle, the
+    compressed exchange, distributed PCA and elastic resume."""
+    from repro_torch.data import dpr_like_population, draw_dpr_like_queries
+
+    t_phase = time.perf_counter()
+    before = launch_counts()
+    kb = kb_on_card(main_kb, "launch", args)
+    doc_params, query_params = launch_recipe(kb, args.seed)
+    launch_pca(kb, smi)
+    del kb
+    torch.cuda.empty_cache()
+    pop = dpr_like_population(args.seed, device="cuda")
+    queries = draw_dpr_like_queries(
+        pop, 6000, torch.Generator(device="cuda").manual_seed(args.seed + 2))
+    launch_search(args, pop, doc_params, query_params, queries, smi)
+    t_search = time.perf_counter() - t_phase
+    launch_cells(args)
+    counts = diff_counts(before, launch_counts())
+    print(f"[launch] kernel launches in the phase: {counts}")
+    for name in ("int8_ip", "topk_blocks", "binary_ip", "fused_quantize"):
+        if not counts.get(name):
+            raise AssertionError(f"the launch path did not launch {name}")
+    launch_exchange(args, smi)
+    launch_elastic(args)
+    launch_dryrun(dryrun, smi)
+    print(f"[launch] phase {time.perf_counter() - t_phase:.1f} s (KB search "
+          f"{t_search:.1f} s); card {smi}")
+    torch.cuda.empty_cache()
+    return {n: counts.get(n, 0) for n in launch_counts()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=1_000_000)
@@ -3481,6 +4028,15 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     smi = phase_environment()
+    dryrun = BackgroundDryRun()
+    try:
+        return run_phases(args, smi, t_start, dryrun)
+    finally:
+        dryrun.stop()
+
+
+def run_phases(args, smi: str, t_start: float,
+               dryrun: BackgroundDryRun) -> int:
     times = {}
 
     def lap(name):
@@ -3495,6 +4051,7 @@ def main(argv=None) -> int:
         kernels = phase_kernels(rates) + [phase_ivf_kernel(rates),
                                           phase_quantize_kernel(rates)]
         lap("kernels")
+        dryrun.start()
         kb = kb_on_card(main_kb, "main", args)
         lap("KB wait")
         counts, exact, rp_float = phase_main_path(args, kb)
@@ -3521,6 +4078,8 @@ def main(argv=None) -> int:
     lap("models")
     phase_lm(args, smi)
     lap("lm")
+    launch_counts_ = phase_launch(args, smi, main_kb, dryrun)
+    lap("launch")
     # each kernel's launches on the path that drives it (the IVF kernel's
     # on the resident and the tiered IVF paths together), plus the sharded,
     # off-path and model phases
@@ -3531,10 +4090,12 @@ def main(argv=None) -> int:
         rec["launches"] = (path_counts.get(rec["name"], counts)[rec["name"]]
                            + sharded_counts[rec["name"]]
                            + offpath_counts[rec["name"]]
-                           + models_counts[rec["name"]])
+                           + models_counts[rec["name"]]
+                           + launch_counts_[rec["name"]])
         rec["launches_sharded"] = sharded_counts[rec["name"]]
         rec["launches_offpath"] = offpath_counts[rec["name"]]
         rec["launches_models"] = models_counts[rec["name"]]
+        rec["launches_launch"] = launch_counts_[rec["name"]]
     print(f"[done] {time.perf_counter() - t_start:.1f} s ("
           + ", ".join(f"{n} {t} s" for n, t in times.items())
           + f"); card {smi}")

@@ -53,11 +53,10 @@ def _per_block(fn, n: int) -> None:
         list(pool.map(fn, _row_blocks(n)))
 
 
-def _kb_arrays(n_queries, n_docs, d, seed, r_eff, alpha, query_noise,
-               doc_noise, doc_mean_norm, query_mean_norm, norm_jitter,
-               beta_sigma, style_scale, mean_in_signal, spans_per_article):
-    rng = np.random.default_rng(seed)
-
+def _population(rng, d, r_eff, alpha, doc_mean_norm, query_mean_norm,
+                mean_in_signal):
+    """The corpus's population, the first draws of ``rng``: (q_full,
+    basis, spectrum, mu_docs, mu_queries)."""
     # signal basis: r_eff orthonormal directions, power-law scaled, with 4
     # "rogue" high-variance dims mixed in
     q_full, _ = np.linalg.qr(rng.standard_normal((d, d)).astype(np.float32))
@@ -67,14 +66,11 @@ def _kb_arrays(n_queries, n_docs, d, seed, r_eff, alpha, query_noise,
     rogue = rng.choice(r_eff, size=4, replace=False)
     spectrum[rogue] *= 3.0
 
-    def latent_to_obs(z):                                        # (n, r_eff)
-        return (z * spectrum[None, :]) @ basis.T                 # (n, d)
-
     # population means: much of the document offset lies inside the signal
     # subspace (breaks raw L2, removed exactly by centering); queries get a
     # smaller offset partially aligned with the documents'
-    mu_dir_in = latent_to_obs(rng.standard_normal((1, r_eff))
-                              .astype(np.float32))[0]
+    mu_dir_in = ((rng.standard_normal((1, r_eff)).astype(np.float32)
+                  * spectrum[None, :]) @ basis.T)[0]
     mu_dir_in /= np.linalg.norm(mu_dir_in)
     mu_docs = doc_mean_norm * (mean_in_signal * mu_dir_in
                                + np.sqrt(1 - mean_in_signal ** 2)
@@ -82,6 +78,18 @@ def _kb_arrays(n_queries, n_docs, d, seed, r_eff, alpha, query_noise,
     mu_queries = query_mean_norm * (
         0.7 * mu_docs / np.linalg.norm(mu_docs)
         + np.sqrt(1 - 0.7 ** 2) * q_full[:, r_eff + 1])
+    return q_full, basis, spectrum, mu_docs, mu_queries
+
+
+def _kb_arrays(n_queries, n_docs, d, seed, r_eff, alpha, query_noise,
+               doc_noise, doc_mean_norm, query_mean_norm, norm_jitter,
+               beta_sigma, style_scale, mean_in_signal, spans_per_article):
+    rng = np.random.default_rng(seed)
+    q_full, basis, spectrum, mu_docs, mu_queries = _population(
+        rng, d, r_eff, alpha, doc_mean_norm, query_mean_norm, mean_in_signal)
+
+    def latent_to_obs(z):                                        # (n, r_eff)
+        return (z * spectrum[None, :]) @ basis.T                 # (n, d)
 
     # article latents with a tight norm spread (DPR: 12.3 ± 0.6)
     n_articles = max(2, n_docs // spans_per_article)
@@ -172,3 +180,76 @@ def make_dpr_like_kb(n_queries: int = 2000, n_docs: int = 50_000,
                   queries=torch.from_numpy(
                       np.asarray(queries, np.float32)).to(dev),
                   relevant=torch.from_numpy(rel).to(dev), meta=meta)
+
+
+@dataclasses.dataclass
+class DPRPopulation:
+    """The population :func:`make_dpr_like_kb` draws from (its first
+    draws from the seed), as tensors on one device, for drawing more of
+    the same corpus there in chunks (:func:`draw_dpr_like_docs`,
+    :func:`draw_dpr_like_queries`).  The chunks come from a
+    ``torch.Generator``, so they are not ``make_dpr_like_kb``'s rows."""
+    basis: torch.Tensor          # (d, r_eff)
+    spectrum: torch.Tensor       # (r_eff,)
+    style_basis: torch.Tensor    # (d, 8)
+    mu_docs: torch.Tensor        # (d,)
+    mu_queries: torch.Tensor     # (d,)
+
+
+def dpr_like_population(seed: int = 0,
+                        device: DeviceLike = None) -> DPRPopulation:
+    """The population of ``make_dpr_like_kb(seed=seed)`` at its default
+    settings (768 dims), on ``device``."""
+    dev = resolve_device(device)
+    r_eff = 144
+    q_full, basis, spectrum, mu_docs, mu_queries = _population(
+        np.random.default_rng(seed), 768, r_eff, alpha=0.5,
+        doc_mean_norm=8.0, query_mean_norm=3.0, mean_in_signal=0.6)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    return DPRPopulation(basis=t(basis), spectrum=t(spectrum),
+                         style_basis=t(q_full[:, r_eff + 2: r_eff + 10]),
+                         mu_docs=t(mu_docs), mu_queries=t(mu_queries))
+
+
+def _signals(pop: DPRPopulation, n: int, g: torch.Generator
+             ) -> torch.Tensor:
+    """n article signals: latent draws, norm 8 with a 5% jitter."""
+    dev = pop.basis.device
+    z = torch.randn((n, pop.basis.shape[1]), generator=g, device=dev)
+    sig = (z * pop.spectrum) @ pop.basis.T
+    jitter = torch.exp(0.05 * torch.randn((n, 1), generator=g, device=dev))
+    return sig / torch.linalg.vector_norm(sig, dim=1, keepdim=True) \
+        * 8.0 * jitter
+
+
+def draw_dpr_like_docs(pop: DPRPopulation, n: int, g: torch.Generator
+                       ) -> torch.Tensor:
+    """n documents of the population (one span an article), drawn from
+    ``g`` on its device: mean + jittered signal + style + noise, at
+    ``make_dpr_like_kb``'s default noise, style and norm jitter."""
+    dev = pop.basis.device
+    d = pop.basis.shape[0]
+    sig = _signals(pop, n, g)
+    s_i = torch.exp(0.08 * torch.randn((n, 1), generator=g, device=dev))
+    n_style = pop.style_basis.shape[1]
+    h = torch.randn((n, n_style), generator=g, device=dev) \
+        * (6.0 / np.sqrt(n_style))
+    noise = torch.randn((n, d), generator=g, device=dev) * 0.15
+    return pop.mu_docs + s_i * sig + h @ pop.style_basis.T + noise
+
+
+def draw_dpr_like_queries(pop: DPRPopulation, n: int, g: torch.Generator
+                          ) -> torch.Tensor:
+    """n queries of the population, each the midpoint of two fresh
+    article signals with in-subspace noise and a heavy-tailed strength
+    (``make_dpr_like_kb``'s defaults: noise 0.55, log-strength σ 0.8)."""
+    dev = pop.basis.device
+    pair = _signals(pop, 2 * n, g)
+    beta = torch.exp(0.8 * torch.randn((n, 1), generator=g, device=dev))
+    eps = (torch.randn((n, pop.basis.shape[1]), generator=g, device=dev)
+           * pop.spectrum) @ pop.basis.T
+    eps = eps * (0.55 * 8.0 / torch.sqrt(torch.mean(
+        torch.sum(eps * eps, dim=-1))))
+    return pop.mu_queries + beta * 0.55 * (pair[:n] + pair[n:]) + eps

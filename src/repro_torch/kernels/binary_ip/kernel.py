@@ -4,7 +4,7 @@ Replaces ``repro.kernels.binary_ip.kernel.binary_ip_pallas`` and the
 ×0.25 of ``repro.kernels.binary_ip.ops.binary_ip_scores``: (Q, d) ±1 int8
 query signs × (D, d/32) packed document words → (Q, D) f32 scores
 ``0.25 · sign dot``.  For CUDA tensors it launches the tensor-core kernel
-(or raises); CPU tensors run
+(or raises); CPU tensors (and meta tensors, in an abstract pass) run
 :func:`~repro_torch.kernels.binary_ip.ref.binary_ip_ref`.
 """
 
@@ -35,7 +35,7 @@ def binary_ip(q_signs: torch.Tensor, docs_packed: torch.Tensor
                          f"*32 != d={q_signs.shape[-1]}")
     if q_signs.device != docs_packed.device:
         raise ValueError("binary_ip: signs and words on different devices")
-    if q_signs.device.type == "cpu":
+    if q_signs.device.type in ("cpu", "meta"):   # meta: an abstract pass
         return binary_ip_ref(q_signs, docs_packed)
     if q_signs.device.type != "cuda":
         raise ValueError(f"binary_ip: unsupported device {q_signs.device}")

@@ -3,8 +3,8 @@
 Replaces ``repro.kernels.int8_ip.kernel.int8_ip_pallas``: (Q, d) bf16
 queries pre-scaled by the codebook × (D, d) uint8 codes (+ an optional
 (Q,) f32 ``bias``, added in the kernel's epilogue) → (Q, D) f32.  CUDA
-tensors launch the kernel (or raise); CPU tensors run
-:func:`~repro_torch.kernels.int8_ip.ref.int8_ip_ref`.
+tensors launch the kernel (or raise); CPU tensors, and meta tensors in
+an abstract pass, run :func:`~repro_torch.kernels.int8_ip.ref.int8_ip_ref`.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def int8_ip(q_scaled: torch.Tensor, docs_u8: torch.Tensor,
         raise ValueError(f"int8_ip: bias must be ({q_scaled.shape[0]},) "
                          f"float32 on {q_scaled.device}, got {bias.dtype} "
                          f"{tuple(bias.shape)} on {bias.device}")
-    if q_scaled.device.type == "cpu":
+    if q_scaled.device.type in ("cpu", "meta"):   # meta: an abstract pass
         return int8_ip_ref(q_scaled, docs_u8, bias)
     if q_scaled.device.type != "cuda":
         raise ValueError(f"int8_ip: unsupported device {q_scaled.device}")

@@ -4,12 +4,14 @@ Replaces ``repro.kernels.topk_blocks.kernel.topk_blocks_pallas``: (Q, D)
 f32 scores → for each block of ``block_d`` columns its top k as
 (Q, n_blocks·k) values and global int32 column indices, equal values to
 the lowest column.  CUDA tensors launch the kernel (or raise); CPU tensors
-run :func:`~repro_torch.kernels.topk_blocks.ref.topk_blocks_ref`.
+run :func:`~repro_torch.kernels.topk_blocks.ref.topk_blocks_ref`, and meta
+tensors (an abstract pass, which has no values) one ``torch.topk``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.topk_blocks.ref import topk_blocks_ref
@@ -17,6 +19,24 @@ from repro_torch.utils import cdiv
 
 #: survivors sorted in shared memory; a longer sort runs in a global scratch
 MAX_SMEM_SORT = 8192
+
+
+def _topk_blocks_meta(scores: torch.Tensor, k: int, block_d: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """An abstract pass's stand-in: the outputs' shapes and dtypes from one
+    ``torch.topk`` over the blocks, which reads the scores once and writes
+    the outputs once, as the kernel does (the plain version's k rounds
+    would cost an abstract pass k times the ops)."""
+    n_q, n_d = scores.shape
+    k = min(k, n_d)
+    if k > block_d:
+        return topk_blocks_ref(scores, k, block_d)
+    n_blocks = cdiv(n_d, block_d)
+    s = scores
+    if n_blocks * block_d != n_d:
+        s = F.pad(s, (0, n_blocks * block_d - n_d), value=float("-inf"))
+    vals, idx = torch.topk(s.reshape(n_q, n_blocks, block_d), k)
+    return vals.reshape(n_q, -1), idx.reshape(n_q, -1).to(torch.int32)
 
 
 def topk_blocks(scores: torch.Tensor, k: int, block_d: int
@@ -28,6 +48,8 @@ def topk_blocks(scores: torch.Tensor, k: int, block_d: int
     if k < 1 or block_d < 1:
         raise ValueError(f"topk_blocks needs k ≥ 1 and block_d ≥ 1, got "
                          f"k={k}, block_d={block_d}")
+    if scores.device.type == "meta":
+        return _topk_blocks_meta(scores, k, block_d)
     if scores.device.type == "cpu":
         return topk_blocks_ref(scores, k, block_d)
     if scores.device.type != "cuda":

@@ -5,9 +5,9 @@ Counterpart of ``repro.models.moe``, over the same parameter trees.  Each
 group stably sorts its own tokens by assigned expert, finds positions
 within each expert with a ``searchsorted`` prefix, and drops tokens past
 an expert's per-group capacity into a sacrificial slot that is cut off.
-There is one group until the port has a sharding context (``repro``'s
-groups are the data-parallel shards); the group axis stays, so a mesh
-only has to supply their number.
+The groups are the data-parallel shards: as many as the active
+:class:`~repro_torch.parallel.sharding.ShardingContext`'s "batch" axes
+have positions, one without a context, as in ``repro``.
 
 Tie orders are ``repro``'s: the router's top-k gives a tie to the lowest
 expert (a stable descending sort, where ``torch.topk`` promises no order),
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import ShardingContext
 
 
 def moe_spec(cfg: LMConfig) -> dict:
@@ -64,8 +65,22 @@ def load_balance_loss(probs: torch.Tensor, expert_ids: torch.Tensor,
 
 
 def _n_groups(t: int) -> int:
-    """Dispatch groups: 1 (no sharding context in the port yet)."""
-    return 1
+    """Dispatch groups = data-parallel shards: the product of the active
+    context's "batch" mesh axes, halved until it divides ``t`` (1 without
+    a mesh)."""
+    ctx = ShardingContext.current()
+    if ctx is None or ctx.mesh is None or ctx.rules is None:
+        return 1
+    ax = ctx.rules.get("batch")
+    if ax is None:
+        return 1
+    axes = (ax,) if isinstance(ax, str) else ax
+    g = 1
+    for a in axes:
+        g *= ctx.mesh.shape.get(a, 1)
+    while g > 1 and t % g != 0:
+        g //= 2
+    return max(g, 1)
 
 
 def _router_top_k(probs: torch.Tensor, k: int
@@ -75,51 +90,71 @@ def _router_top_k(probs: torch.Tensor, k: int
     return vals[..., :k], ids[..., :k]
 
 
-def _dispatch_group(x: torch.Tensor, expert_ids: torch.Tensor,
-                    gate: torch.Tensor, capacity: int, e: int, dt):
-    """One group's sort-based dispatch.  x (Tg, d); ids/gate (Tg, k).
-    Returns (buf (E, C, d), combine metadata)."""
-    tg, d = x.shape
+def _dispatch(x: torch.Tensor, expert_ids: torch.Tensor,
+              gate: torch.Tensor, capacity: int, e: int, dt):
+    """Every group's sort-based dispatch at once, each group on its own:
+    x (G, Tg, d); ids/gate (G, Tg, k).  Returns (buf (G, E, C, d),
+    combine metadata)."""
+    g, tg, d = x.shape
     k = expert_ids.shape[-1]
     dev = x.device
-    flat_e = expert_ids.reshape(-1)                        # (Tg·k,)
-    sort_idx = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[sort_idx]
+    flat_e = expert_ids.reshape(g, -1)                     # (G, Tg·k)
+    sort_idx = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, sort_idx)
     token_of = sort_idx // k
-    first_occ = torch.searchsorted(sorted_e,
-                                   torch.arange(e, device=dev,
-                                                dtype=sorted_e.dtype))
-    pos = torch.arange(tg * k, device=dev) - first_occ[sorted_e]
+    first_occ = torch.searchsorted(
+        sorted_e, torch.arange(e, device=dev,
+                               dtype=sorted_e.dtype).expand(g, e).contiguous())
+    pos = torch.arange(tg * k, device=dev) - torch.gather(first_occ, 1,
+                                                          sorted_e)
     keep = pos < capacity
     slot = torch.where(keep, pos, capacity)   # dropped → sacrificial slot
+    group = torch.arange(g, device=dev)[:, None].expand_as(sorted_e)
 
-    buf = torch.zeros((e, capacity + 1, d), dtype=dt, device=dev)
+    buf = torch.zeros((g, e, capacity + 1, d), dtype=dt, device=dev)
     # only the sacrificial slot takes duplicate indices, and it is cut off
-    buf = buf.index_put((sorted_e, slot), F.embedding(token_of, x))
-    buf = buf[:, :capacity]
-    gate_sorted = gate.reshape(-1)[sort_idx].to(dt)
+    buf = buf.index_put((group, sorted_e, slot), x[group, token_of])
+    buf = buf[:, :, :capacity]
+    gate_sorted = torch.gather(gate.reshape(g, -1), 1, sort_idx).to(dt)
     return buf, (sort_idx, sorted_e, slot, keep, gate_sorted)
+
+
+def _combine(out_buf: torch.Tensor, meta, tg: int, dt) -> torch.Tensor:
+    """Weighted expert outputs back to each group's tokens: out_buf
+    (G, E, C, d) → (G, Tg, d).  ``repro`` scatter-adds them in bf16; here
+    each token's k outputs are added one after another in the order that
+    scatter visits them (the dispatch order, by expert), each add rounded
+    to ``dt``: the same sums, made without atomic adds."""
+    sort_idx, sorted_e, slot, keep, gate_sorted = meta
+    g, n = sort_idx.shape
+    dev = out_buf.device
+    padded = F.pad(out_buf, (0, 0, 0, 1))                  # (G, E, C+1, d)
+    group = torch.arange(g, device=dev)[:, None].expand_as(sorted_e)
+    vals = padded[group, sorted_e, slot]                   # (G, Tg·k, d)
+    vals = vals * gate_sorted[..., None] * keep.to(dt)[..., None]
+    rank = torch.empty_like(sort_idx)                      # inverse perm.
+    rank.scatter_(1, sort_idx, torch.arange(n, device=dev).expand(g, n))
+    visits = torch.sort(rank.reshape(g, tg, -1), dim=2).values  # (G, Tg, k)
+    out = torch.zeros((g, tg, out_buf.shape[-1]), dtype=dt, device=dev)
+    rows = torch.arange(g, device=dev)[:, None]
+    for j in range(visits.shape[2]):
+        out = out + vals[rows, visits[:, :, j]]
+    return out
+
+
+def _dispatch_group(x: torch.Tensor, expert_ids: torch.Tensor,
+                    gate: torch.Tensor, capacity: int, e: int, dt):
+    """One group's dispatch (``repro``'s unit): x (Tg, d); ids/gate
+    (Tg, k) → (buf (E, C, d), combine metadata)."""
+    buf, meta = _dispatch(x[None], expert_ids[None], gate[None], capacity,
+                          e, dt)
+    return buf[0], tuple(m[0] for m in meta)
 
 
 def _combine_group(out_buf: torch.Tensor, meta, tg: int, dt
                    ) -> torch.Tensor:
-    """Weighted expert outputs back to the group's tokens.  ``repro``
-    scatter-adds them in bf16; here each token's k outputs are added one
-    after another in the order that scatter visits them (the dispatch
-    order, by expert), each add rounded to ``dt``: the same sums, made
-    without atomic adds."""
-    sort_idx, sorted_e, slot, keep, gate_sorted = meta
-    padded = F.pad(out_buf, (0, 0, 0, 1))                  # (E, C+1, d)
-    vals = padded[sorted_e, slot]
-    vals = vals * gate_sorted[:, None] * keep.to(dt)[:, None]
-    rank = torch.empty_like(sort_idx)                      # inverse perm.
-    rank[sort_idx] = torch.arange(sort_idx.numel(), device=sort_idx.device)
-    visits = torch.sort(rank.reshape(tg, -1), dim=1).values   # (Tg, k)
-    out = torch.zeros((tg, out_buf.shape[-1]), dtype=dt,
-                      device=out_buf.device)
-    for j in range(visits.shape[1]):
-        out = out + vals[visits[:, j]]
-    return out
+    """One group's combine: out_buf (E, C, d) → (Tg, d)."""
+    return _combine(out_buf[None], tuple(m[None] for m in meta), tg, dt)[0]
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: LMConfig
@@ -141,11 +176,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: LMConfig
 
     capacity = max(1, int(moe.capacity_factor * tg * k / e))
 
-    # --- per-group dispatch
-    groups = [_dispatch_group(xx, ii, gg, capacity, e, dt) for xx, ii, gg in
-              zip(x.reshape(g, tg, d), expert_ids.reshape(g, tg, k),
-                  gate.reshape(g, tg, k))]
-    buf = torch.stack([b for b, _ in groups])                 # (G, E, C, d)
+    # --- per-group dispatch, all groups at once
+    buf, meta = _dispatch(x.reshape(g, tg, d), expert_ids.reshape(g, tg, k),
+                          gate.reshape(g, tg, k), capacity, e, dt)
 
     # --- expert GEMMs
     h = torch.einsum("gecd,edf->gecf", buf, p["w_in"].to(dt))
@@ -155,6 +188,5 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: LMConfig
     out_buf = torch.einsum("gecf,efd->gecd", h, p["w_out"].to(dt))
 
     # --- combine
-    out = torch.stack([_combine_group(ob, meta, tg, dt)
-                       for ob, (_, meta) in zip(out_buf, groups)])
+    out = _combine(out_buf, meta, tg, dt)
     return out.reshape(t, d), aux.float()

@@ -27,6 +27,7 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.parallel.sharding import ShardingContext
 from repro_torch.train.optimizer import tree_map
 from repro_torch.utils import DeviceLike, resolve_device
 
@@ -156,7 +157,19 @@ def _remat_wrap(fn, cfg: LMConfig):
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    def run(*args):
+        # the recomputation runs in the backward pass, after the step's
+        # ShardingContext has exited: it re-enters the forward's (mesh,
+        # rules), so a MoE layer recomputes in the same dispatch groups
+        ctx = ShardingContext.current()
+        mesh, rules = (ctx.mesh, ctx.rules) if ctx else (None, None)
+
+        def under_ctx(*a):
+            with ShardingContext(mesh, rules):
+                return fn(*a)
+        return checkpoint(under_ctx, *args, use_reentrant=False, **kw)
+    return run
 
 
 def forward_features(params: dict, tokens: torch.Tensor, cfg: LMConfig

@@ -148,13 +148,19 @@ def similarity_gathered(queries: torch.Tensor, docs: torch.Tensor,
     raise ValueError(f"unknown similarity {sim!r}")
 
 
+def topk_in_order(vals: torch.Tensor, idx: torch.Tensor, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest ``vals`` per row with their ``idx``; equal values
+    keep their column order, as ``lax.top_k`` does."""
+    pos = torch.sort(-vals, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(vals, -1, pos), torch.gather(idx, -1, pos)
+
+
 def merge_topk(vals_a, idx_a, vals_b, idx_b, k):
     """Merge two top-k candidate sets; equal scores keep earlier entries
     first (``a`` before ``b``), as ``lax.top_k`` does."""
-    vals = torch.cat([vals_a, vals_b], dim=-1)
-    idx = torch.cat([idx_a, idx_b], dim=-1)
-    pos = torch.sort(-vals, dim=-1, stable=True).indices[..., :k]
-    return torch.gather(vals, -1, pos), torch.gather(idx, -1, pos)
+    return topk_in_order(torch.cat([vals_a, vals_b], dim=-1),
+                         torch.cat([idx_a, idx_b], dim=-1), k)
 
 
 def topk_search(queries: torch.Tensor, docs: torch.Tensor, k: int,

@@ -1,5 +1,5 @@
-"""Shared helpers: chunking, tree sizes, and the device and backend
-contracts.
+"""Shared helpers: chunking, divisors, byte counts, and the device and
+backend contracts.
 
 Device: every entry point takes ``device=None``, which means ``"cuda"``.
 Asking for CUDA where there is none raises — the package never carries on
@@ -37,6 +37,22 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(a: int, b: int) -> int:
     return cdiv(a, b) * b
+
+
+def first_divisor_leq(n: int, cap: int) -> int:
+    """Largest divisor of ``n`` that is <= cap (>=1)."""
+    for d in range(min(cap, n), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB", "PiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f} {unit}"
+        n /= 1024.0
+    return f"{n:.2f} EiB"
 
 
 def chunked(n: int, chunk: int) -> Iterable[tuple[int, int]]:
