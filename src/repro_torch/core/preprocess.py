@@ -173,3 +173,14 @@ class PreprocessSpec:
         if self.mode not in table:
             raise ValueError(f"unknown preprocess mode: {self.mode!r}")
         return [cls() for cls in table[self.mode]]
+
+
+def fit_apply(transforms: list[Transform], docs: torch.Tensor,
+              queries: torch.Tensor, rng: Optional[torch.Generator] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fit each transform in order, applying as we go. Returns final (D, Q)."""
+    for t in transforms:
+        t.fit(docs, queries, rng=rng)
+        docs = t(docs, "docs")
+        queries = t(queries, "queries")
+    return docs, queries

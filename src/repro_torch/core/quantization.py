@@ -172,3 +172,13 @@ def compression_ratio(input_dim: int, transforms: list[Transform],
         dim = t.output_dim(dim)
         bits = t.bits_per_dim(bits)
     return (input_dim * base_bits) / (dim * bits)
+
+
+def simulate_storage_bytes(n_vectors: int, input_dim: int,
+                           transforms: list[Transform]) -> int:
+    """Bytes that ``n_vectors`` rows take after the transform chain."""
+    dim, bits = input_dim, 32.0
+    for t in transforms:
+        dim = t.output_dim(dim)
+        bits = t.bits_per_dim(bits)
+    return int(np.ceil(n_vectors * dim * bits / 8))

@@ -182,6 +182,23 @@ def make_dpr_like_kb(n_queries: int = 2000, n_docs: int = 50_000,
                   relevant=torch.from_numpy(rel).to(dev), meta=meta)
 
 
+def add_distractors(kb: KBData, n_extra: int, seed: int = 1) -> KBData:
+    """Append irrelevant documents drawn from the same marginal (Fig. 6):
+    ``repro``'s draws from ``np.random.default_rng(seed)``, so the added
+    rows are byte-equal to its; the result lies on ``kb``'s device."""
+    rng = np.random.default_rng(seed)
+    docs = kb.docs.detach().cpu().numpy()
+    i = rng.integers(0, docs.shape[0], size=n_extra)
+    j = rng.integers(0, docs.shape[0], size=n_extra)
+    w = rng.uniform(0.3, 0.7, size=(n_extra, 1)).astype(np.float32)
+    extra = w * docs[i] + (1 - w) * docs[j] \
+        + 0.3 * rng.standard_normal((n_extra, docs.shape[1])).astype(np.float32)
+    new_docs = np.concatenate([docs, extra], axis=0)
+    return KBData(docs=torch.from_numpy(new_docs).to(kb.docs.device),
+                  queries=kb.queries, relevant=kb.relevant,
+                  meta={**kb.meta, "n_distractors": n_extra})
+
+
 @dataclasses.dataclass
 class DPRPopulation:
     """The population :func:`make_dpr_like_kb` draws from (its first

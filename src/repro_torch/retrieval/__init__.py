@@ -14,9 +14,9 @@ The declarative front door is :mod:`repro_torch.retrieval.api`::
 over the mesh the spec describes.
 """
 
-from repro_torch.retrieval.api import (IndexSpec, ShardSpec, build_index,
-                                       load_index, load_index_meta,
-                                       save_index)
+from repro_torch.retrieval.api import (Index, IndexSpec, ShardSpec,
+                                       build_index, load_index,
+                                       load_index_meta, save_index)
 from repro_torch.retrieval.index import CompressedIndex, DenseIndex
 from repro_torch.retrieval.ivf import IVFFlatIndex, IVFIndex
 from repro_torch.retrieval.rprecision import (make_dim_drop_scorer,
@@ -28,19 +28,19 @@ from repro_torch.retrieval.segments import DriftMonitor, SegmentedIndex
 from repro_torch.retrieval.sharded import (ShardedCompressedIndex,
                                            ShardedIVFIndex,
                                            partition_ivf_lists)
-from repro_torch.retrieval.scorers import (Scorer, get_scorer,
-                                           register_scorer,
+from repro_torch.retrieval.scorers import (Scorer, backend_tail_stages,
+                                           get_scorer, register_scorer,
                                            scorer_for_pipeline, scorer_names)
 from repro_torch.retrieval.topk import (masked_topk_by_id, resolve_k,
                                         topk_score_then_id, topk_search)
 
 __all__ = [
-    "IndexSpec", "ShardSpec", "build_index", "load_index",
+    "Index", "IndexSpec", "ShardSpec", "build_index", "load_index",
     "load_index_meta", "save_index",
     "CompressedIndex", "DenseIndex", "IVFFlatIndex", "IVFIndex",
     "DriftMonitor", "SegmentedIndex",
     "ShardedCompressedIndex", "ShardedIVFIndex", "partition_ivf_lists",
-    "Scorer", "get_scorer", "register_scorer",
+    "Scorer", "backend_tail_stages", "get_scorer", "register_scorer",
     "scorer_for_pipeline", "scorer_names",
     "make_dim_drop_scorer", "r_precision", "r_precision_from_ids",
     "recall_at_k",

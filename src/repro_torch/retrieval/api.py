@@ -2,6 +2,7 @@
 
 Counterpart of ``repro.retrieval.api`` for exact and IVF search:
 
+* :class:`Index` — the protocol every index class satisfies.
 * :class:`IndexSpec` / :class:`ShardSpec` — frozen, JSON round-trippable
   recipes, with the same JSON as ``repro``'s (backends are written with
   ``repro``'s names, ``jnp``/``pallas``, and read back as the port's).
@@ -40,7 +41,8 @@ import hashlib
 import json
 import os
 import warnings
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import (Any, Optional, Protocol, Sequence, Tuple, Union,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -80,6 +82,33 @@ _SHARDED_KINDS = ("ShardedCompressedIndex", "ShardedIVFIndex")
 
 #: stage-descriptor type: ``(transform class name, constructor kwargs)``
 StageSpec = Tuple[str, dict]
+
+
+@runtime_checkable
+class Index(Protocol):
+    """What every index class exposes — the one API serving grows on.
+
+    ``search`` returns ``(scores, ids)`` of shape ``(Q, min(k, len(self)))``
+    ranked by ``(score desc, id asc)``; ``k < 1`` raises.  ``save`` writes
+    the full artifact (see :func:`save_index`); :func:`load_index` restores
+    it to bit-identical rankings without the raw corpus.
+    """
+
+    spec: Optional["IndexSpec"]
+
+    def search(self, queries: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]: ...
+
+    def add(self, docs: torch.Tensor) -> "Index": ...
+
+    def __len__(self) -> int: ...
+
+    @property
+    def nbytes(self) -> int: ...
+
+    def state_dict(self) -> dict: ...
+
+    def save(self, path: str) -> None: ...
 
 
 @dataclasses.dataclass(frozen=True)

@@ -215,6 +215,17 @@ def scorer_names() -> tuple[str, ...]:
     return tuple(_SCORER_BY_NAME)
 
 
+def backend_tail_stages() -> dict[str, list[Transform]]:
+    """Canonical {backend name: trailing pipeline stages} sweep table.
+
+    One place for tests and benchmarks that cover every scorer backend;
+    stages are stateful once fitted, so each call returns fresh instances
+    (never share them across pipelines).
+    """
+    return {"float": [], "fp16": [FloatCast()],
+            "int8": [Int8Quantizer()], "onebit": [OneBitQuantizer(0.5)]}
+
+
 def get_scorer(name: str, quantizer: Optional[Transform] = None,
                sim: str = "ip", backend: str = "auto") -> Scorer:
     if name not in _SCORER_BY_NAME:

@@ -1,5 +1,5 @@
-"""Shared helpers: chunking, divisors, byte counts, and the device and
-backend contracts.
+"""Shared helpers: chunking, divisors, byte and item counts, a stable
+hash, and the device and backend contracts.
 
 Device: every entry point takes ``device=None``, which means ``"cuda"``.
 Asking for CUDA where there is none raises — the package never carries on
@@ -19,7 +19,7 @@ Artifacts and spec JSON keep ``repro``'s names (``auto``/``jnp``/``pallas``):
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Union
+from typing import Any, Iterable, Optional, Sequence, Union
 
 import torch
 
@@ -55,6 +55,25 @@ def human_bytes(n: float) -> str:
     return f"{n:.2f} EiB"
 
 
+def human_count(n: float) -> str:
+    for unit in ("", "K", "M", "B", "T"):
+        if abs(n) < 1000.0:
+            return f"{n:.2f}{unit}"
+        n /= 1000.0
+    return f"{n:.2f}Q"
+
+
+def stable_hash(items: Sequence[Any]) -> int:
+    """Order-dependent deterministic hash for seeding from config fields
+    (FNV-1a over each item's ``repr``, as ``repro``'s)."""
+    h = 1469598103934665603
+    for it in items:
+        for b in repr(it).encode():
+            h ^= b
+            h = (h * 1099511628211) % (1 << 64)
+    return h % (1 << 31)
+
+
 def chunked(n: int, chunk: int) -> Iterable[tuple[int, int]]:
     """Yield (start, stop) covering [0, n) in chunks."""
     for start in range(0, n, chunk):
@@ -69,6 +88,23 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "repro_torch: no CUDA device is available — pass device='cpu' "
             "to run on the CPU")
     return dev
+
+
+def device_name(device: DeviceLike) -> str:
+    """The card's name for a CUDA device (as ``nvidia-smi`` names it), else
+    the device type in capitals ("CPU")."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return dev.type.upper()
+
+
+def synchronize(device: DeviceLike) -> None:
+    """Wait for a CUDA device's queued work (host clocks read after it);
+    nothing to wait for on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def check_backend(backend: str) -> str:
