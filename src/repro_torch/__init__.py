@@ -27,6 +27,9 @@ Layers
                               and loop (``trainer``), checkpoints that
                               ``repro`` reads and writes (``checkpoint``)
                               and fault tolerance.
+- ``repro_torch.tracing``   : spans inside the search paths, recorded while
+                              a profiler records, and always-on counters
+                              (the kernels' launches among them).
 
 Device contract: entry points take ``device=None``, which means ``"cuda"``;
 without a CUDA device they raise unless the caller passes ``device="cpu"``.

@@ -1,12 +1,12 @@
 """Hand-written CUDA C++ kernels for Hopper (``sm_90a``), one per TPU kernel.
 
 Each subpackage holds ``kernel.py`` (the wrapper: checks its inputs,
-launches the kernel for CUDA tensors, counts its launches in
-``<wrapper>.launches``, and runs the plain version for CPU tensors only),
-``ref.py`` (the plain PyTorch version of the same function) and ``ops.py``
-(the public op, as in ``repro.kernels``).  The CUDA sources live in
-``repro_torch/csrc/`` and are built by :mod:`repro_torch.kernels._build`
-at first use.
+launches the kernel for CUDA tensors, counts its launches in the counter
+``<wrapper>.launches`` of :mod:`repro_torch.tracing`, and runs the plain
+version for CPU tensors only), ``ref.py`` (the plain PyTorch version of
+the same function) and ``ops.py`` (the public op, as in
+``repro.kernels``).  The CUDA sources live in ``repro_torch/csrc/`` and
+are built by :mod:`repro_torch.kernels._build` at first use.
 
 - ``int8_ip``     : int8 index scoring, bf16(q⊙scale) × u8 with f32 sums on
                     the tensor cores, + a per-query bias (q·zero).
@@ -23,21 +23,18 @@ at first use.
                     int8).
 """
 
+from repro_torch import tracing
 
-def _wrappers():
-    from repro_torch.kernels.binary_ip.kernel import binary_ip
-    from repro_torch.kernels.fused_quantize.kernel import fused_quantize
-    from repro_torch.kernels.int8_ip.kernel import int8_ip
-    from repro_torch.kernels.ivf_fused.kernel import fused_ivf_topk
-    from repro_torch.kernels.topk_blocks.kernel import topk_blocks
-    return (int8_ip, binary_ip, topk_blocks, fused_ivf_topk, fused_quantize)
+#: the kernel wrappers, by name
+WRAPPERS = ("int8_ip", "binary_ip", "topk_blocks", "fused_ivf_topk",
+            "fused_quantize")
 
 
 def launch_counts() -> dict[str, int]:
     """{kernel wrapper name: launches so far} for every kernel wrapper."""
-    return {f.__name__: f.launches for f in _wrappers()}
+    counts = tracing.counters()
+    return {name: counts.get(name + ".launches", 0) for name in WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    for f in _wrappers():
-        f.launches = 0
+    tracing.reset([name + ".launches" for name in WRAPPERS])

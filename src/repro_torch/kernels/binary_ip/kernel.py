@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.binary_ip.ref import binary_ip_ref
 
@@ -59,8 +60,5 @@ def binary_ip(q_signs: torch.Tensor, docs_packed: torch.Tensor
                     + 4 * w0, docs.stride(0), out.data_ptr(), n_q, n_docs,
                     min(MAX_WORDS, n_words - w0), int(w0 > 0),
                     _build.stream_handle(docs)), "binary_ip")
-                binary_ip.launches += 1
+                tracing.count("binary_ip.launches")
     return out
-
-
-binary_ip.launches = 0

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_quantize.ref import fused_quantize_ref
 
@@ -72,8 +73,5 @@ def fused_quantize(x: torch.Tensor, mu1: torch.Tensor, w: torch.Tensor,
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             n, d, kp, d_out, dp, _build.stream_handle(xs)),
             "fused_quantize")
-    fused_quantize.launches += 1
+    tracing.count("fused_quantize.launches")
     return out
-
-
-fused_quantize.launches = 0

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.int8_ip.ref import int8_ip_ref
 
@@ -60,8 +61,5 @@ def int8_ip(q_scaled: torch.Tensor, docs_u8: torch.Tensor,
                 q.data_ptr(), docs.data_ptr(),
                 b.data_ptr() if b is not None else None, out.data_ptr(), n_q,
                 n_docs, d, _build.stream_handle(q)), "int8_ip")
-        int8_ip.launches += 1
+        tracing.count("int8_ip.launches")
     return out
-
-
-int8_ip.launches = 0

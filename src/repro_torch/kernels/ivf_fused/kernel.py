@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_fused.ref import BACKENDS, fused_ivf_topk_ref
 
@@ -137,8 +138,5 @@ def fused_ivf_topk(probes: torch.Tensor, qe: torch.Tensor,
                 nprobe, nlist, max_len, w, k, m, BACKENDS.index(backend),
                 _build.stream_handle(q)),
                 "fused_ivf_topk")
-        fused_ivf_topk.launches += 1
+        tracing.count("fused_ivf_topk.launches")
     return vals, out_ids
-
-
-fused_ivf_topk.launches = 0

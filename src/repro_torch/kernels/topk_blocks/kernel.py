@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.topk_blocks.ref import topk_blocks_ref
 from repro_torch.utils import cdiv
@@ -72,8 +73,5 @@ def topk_blocks(scores: torch.Tensor, k: int, block_d: int
                 scratch.data_ptr() if scratch is not None else None, n_q,
                 n_d, k, block_d, n_blocks, p2, _build.stream_handle(s)),
                 "topk_blocks")
-        topk_blocks.launches += 1
+        tracing.count("topk_blocks.launches")
     return vals, idx
-
-
-topk_blocks.launches = 0

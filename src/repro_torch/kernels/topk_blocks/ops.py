@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.topk_blocks import ref as _ref
 from repro_torch.kernels.topk_blocks.kernel import topk_blocks
 
@@ -43,5 +44,7 @@ def streaming_topk(scores: torch.Tensor, k: int, use_kernel: bool = False,
         vals, idx = _ref.topk_ref(scores, k)
         return vals, idx.long()
     vals, idx = topk_blocks(scores, k, block_d or default_block_d(k))
-    vals, idx = topk_score_then_id(vals, idx, min(k, scores.shape[-1]))
+    tracing.count("topk.merge_candidates", vals.numel())
+    with tracing.span("search.topk.merge", scores.device):
+        vals, idx = topk_score_then_id(vals, idx, min(k, scores.shape[-1]))
     return vals, idx.long()

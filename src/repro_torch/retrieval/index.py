@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.preprocess import as_tensor
 from repro_torch.core.quantization import words_from_numpy
@@ -209,18 +210,21 @@ class CompressedIndex:
             return topk_search(self.encode_queries(queries),
                                self.decoded_docs(), k, sim=self.sim,
                                doc_chunk=doc_chunk, backend=self.backend)
-        queries = as_tensor(queries, self.device)
-        params = self.scorer.params()
-        kernel = self.scorer.use_kernel(self.storage)
-        vals, ids = [], []
-        for s, e in chunked(queries.shape[0], QUERY_CHUNK):
-            q = self.scorer.encode_queries(self.encode_queries(queries[s:e]))
-            scores = self.scorer.scores(q, self.storage, params=params)
-            v, i = streaming_topk(scores, k, use_kernel=kernel)
-            del scores                 # free the (chunk, D) matrix early
-            vals.append(v)
-            ids.append(i)
-        return torch.cat(vals), torch.cat(ids)
+        with tracing.span("search"):
+            queries = as_tensor(queries, self.device)
+            tracing.count("search.queries", queries.shape[0])
+            params = self.scorer.params()
+            kernel = self.scorer.use_kernel(self.storage)
+            vals, ids = [], []
+            for s, e in chunked(queries.shape[0], QUERY_CHUNK):
+                q = self.scorer.encode_queries(
+                    self.encode_queries(queries[s:e]))
+                scores = self.scorer.scores(q, self.storage, params=params)
+                v, i = streaming_topk(scores, k, use_kernel=kernel)
+                del scores             # free the (chunk, D) matrix early
+                vals.append(v)
+                ids.append(i)
+            return torch.cat(vals), torch.cat(ids)
 
     def state_dict(self) -> dict:
         """Pipeline state (incl. scorer codebooks), the encoded storage and

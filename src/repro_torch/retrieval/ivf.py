@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.preprocess import as_tensor
 from repro_torch.retrieval.index import storage_tensor
@@ -474,11 +475,14 @@ class IVFIndex:
                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """Route, then one fused gather + score + top-k kernel launch."""
         from repro_torch.kernels.ivf_fused import ops as fused_ops
-        q = self.encode_queries(queries).float()
-        cvals, probe = route(q, self.centroids, self.sim, nprobe)
-        return fused_ops.fused_ivf_topk(
-            probe, q, list_storage, list_ids, k, self.scorer.name,
-            params=params, extra_base=cvals if self.residual else None)
+        with tracing.span("search.stages"):
+            q = self.encode_queries(queries).float()
+        with tracing.span("search.route"):
+            cvals, probe = route(q, self.centroids, self.sim, nprobe)
+        with tracing.span("search.ivf_fused"):
+            return fused_ops.fused_ivf_topk(
+                probe, q, list_storage, list_ids, k, self.scorer.name,
+                params=params, extra_base=cvals if self.residual else None)
 
     def search(self, queries, k: int, nprobe: Optional[int] = None,
                query_chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
@@ -500,25 +504,27 @@ class IVFIndex:
                 "source CompressedIndex changed since to_ivf (add was "
                 "called); the promoted IVF view shares its old storage — "
                 "re-promote with to_ivf()")
-        nprobe = resolve_nprobe(nprobe, self.nlist, default=self.nprobe)
-        k = resolve_k(k, self._n_docs)
-        queries = as_tensor(queries, self.device)
-        params = self.scorer.params()
-        if self.storage is None:       # tiered: lists come from the store
-            vals, ids = self._store_search(queries, k, nprobe, query_chunk,
-                                           params)
-            return vals, ids.long()
-        if self._use_fused_kernel:
-            vals, ids = self._fused_search(queries, k, nprobe, params,
-                                           *self._list_major_layout())
-            return vals, ids.long()
-        vals, ids = [], []
-        for s in range(0, queries.shape[0], query_chunk):
-            v, i = self._streaming_search(queries[s: s + query_chunk], k,
-                                          nprobe, params)
-            vals.append(v)
-            ids.append(i)
-        return torch.cat(vals), torch.cat(ids).long()
+        with tracing.span("search"):
+            nprobe = resolve_nprobe(nprobe, self.nlist, default=self.nprobe)
+            k = resolve_k(k, self._n_docs)
+            queries = as_tensor(queries, self.device)
+            tracing.count("search.queries", queries.shape[0])
+            params = self.scorer.params()
+            if self.storage is None:   # tiered: lists come from the store
+                vals, ids = self._store_search(queries, k, nprobe,
+                                               query_chunk, params)
+                return vals, ids.long()
+            if self._use_fused_kernel:
+                vals, ids = self._fused_search(queries, k, nprobe, params,
+                                               *self._list_major_layout())
+                return vals, ids.long()
+            vals, ids = [], []
+            for s in range(0, queries.shape[0], query_chunk):
+                v, i = self._streaming_search(queries[s: s + query_chunk],
+                                              k, nprobe, params)
+                vals.append(v)
+                ids.append(i)
+            return torch.cat(vals), torch.cat(ids).long()
 
     # -- tiered (store-backed) search --------------------------------------
     def _fetch_block(self, pj: np.ndarray
