@@ -42,7 +42,14 @@ Phases, each printed as it runs:
    an fp16 ±1 ``torch.mm`` for binary_ip (and the same writing f32),
    ``torch.topk`` for topk_blocks; none gathers, scores and ranks per
    probe, so null for IVF; the product alone for fused_quantize) and the
-   card's bound.
+   card's bound.  Then stage 2 of the exact top-k, topk_merge, on
+   topk_blocks' candidates at the dpr24x.bulk cell's shape (1,024 × 2.1M,
+   k=100: 513 lists) and at (256, 1M) for k=10, 100 and 1,010, over
+   normal, tie-heavy, seven-valued, ±0.0 and mostly −inf scores and the
+   ragged top-k cases: ids and value bits equal to the sort path
+   (``topk_score_then_id``), its CUDA-event ms beside the sort path's
+   (``library_ms``) and its bound, its launches and the card, on a
+   ``[kernel] topk_merge`` line of its own.
 4. main path — a synthetic DPR-like KB (768-dim f32, ``--n-docs`` docs;
    both KBs are made on the host in worker threads while phases 2–3 run)
    indexed with the paper's 24× recipe (PCA-128 + int8) and 100× recipe
@@ -253,6 +260,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import tracing  # noqa: E402
 from repro_torch.kernels import (_build, launch_counts,  # noqa: E402
                                  reset_launch_counts)
 from repro_torch.kernels.binary_ip.kernel import binary_ip  # noqa: E402
@@ -266,11 +274,13 @@ from repro_torch.kernels.int8_ip.ref import int8_ip_ref  # noqa: E402
 from repro_torch.kernels.ivf_fused.kernel import (  # noqa: E402
     MAX_K, candidates_per_pair, fused_ivf_topk)
 from repro_torch.kernels.ivf_fused.ref import fused_ivf_topk_ref  # noqa: E402
-from repro_torch.kernels.topk_blocks.kernel import topk_blocks  # noqa: E402
+from repro_torch.kernels.topk_blocks.kernel import (  # noqa: E402
+    topk_blocks, topk_merge)
 from repro_torch.kernels.topk_blocks.ops import (  # noqa: E402
     default_block_d, streaming_topk)
 from repro_torch.kernels.topk_blocks.ref import topk_blocks_ref  # noqa: E402
 from repro_torch.launch.roofline import card_rates  # noqa: E402
+from repro_torch.retrieval.topk import topk_score_then_id  # noqa: E402
 
 Q, D_MAIN, D_INT8, W_ONEBIT = 256, 1_000_000, 128, 8
 BATCH, K = 256, 10
@@ -585,6 +595,116 @@ def phase_kernels(rates) -> list[dict]:
         print(f"[kernel] {rec['name']}: {json.dumps(rec)}")
     torch.cuda.empty_cache()
     return out
+
+
+#: stage 2 at the dpr24x.bulk cell's shape (1,024 queries over 2.1M docs
+#: at k = 100: 513 lists of 100), then at the kernel phase's (256, 1M)
+MERGE_SHAPES = ((1024, 2_100_000, 100), (Q, D_MAIN, K), (Q, D_MAIN, 100),
+                (Q, D_MAIN, TOPK_DEEP))
+MERGE_LABELS = ("normal", "ties", "few", "zeros", "sparse")
+
+
+def merge_scores(label: str, q: int, d: int, k: int, gen) -> torch.Tensor:
+    """(q, d) scores for topk_merge's check.  ``ties``: 0.5·round(16·x),
+    ~160 values, ties as sign-dot scores tie; ``few``: 7 values, so the
+    runs at τ₀ overflow the buffer (the exact path); ``zeros``: ±0.0 with
+    ~k/2 ones and 10% −inf, so ±0.0 ties decide the k-th slot; ``sparse``:
+    ~k/2 finite entries a row, the rest −inf (−inf pads in the output)."""
+    dev = "cuda"
+    if label in ("normal", "ties"):
+        s = torch.randn(q, d, device=dev, generator=gen)
+        return s.mul_(16).round_().mul_(0.5) if label == "ties" else s
+    if label == "few":
+        return torch.randint(-3, 4, (q, d), device=dev,
+                             generator=gen).float().mul_(0.25)
+    u = torch.rand(q, d, device=dev, generator=gen)
+    if label == "zeros":
+        s = torch.where(u < 0.5, -0.0, 0.0)
+        s.masked_fill_(u > 0.9, float("-inf"))
+        return s.masked_fill_(u < 0.5 * k / d, 1.0)
+    s = torch.randn(q, d, device=dev, generator=gen)
+    return s.masked_fill_(u >= 0.5 * k / d, float("-inf"))
+
+
+def phase_topk_merge(rates, smi: str) -> dict:
+    """Stage 2 of the exact top-k, ``topk_merge``, against the sort path
+    (``topk_score_then_id``) on the same ``topk_blocks`` candidates: ids
+    and value bits equal at every shape and label of ``merge_scores`` and
+    on the ragged stage-1 cases (k > block_d, −inf rows, ties, ±0.0, a
+    buffer in global scratch at k = 9,000).  Times both with CUDA events
+    beside the bound: every candidate read once, the output written
+    once."""
+    byte_rate, _, _, f32_rate = rates
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    before = tracing.counters().get("topk_merge.launches", 0)
+
+    def check(cv, ci, k, what):
+        gv, gi = topk_merge(cv, ci, k)
+        wv, wi = topk_score_then_id(cv, ci, k)
+        if not (torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+                and torch.equal(gi, wi.long())):
+            raise AssertionError(f"topk_merge disagrees with the sort path "
+                                 f"at {what}")
+        return gv, gi
+
+    for scores, k, bd in topk_ragged_cases(gen):
+        kk = min(k, scores.shape[1])
+        cv, ci = topk_blocks(scores, kk, bd)
+        check(cv, ci, kk, f"{tuple(scores.shape)} k={kk} block_d={bd}")
+    rec = None
+    for q, d, k in MERGE_SHAPES:
+        bd = default_block_d(k)
+        n_lists = -(-d // bd)
+        b_ms, b_by = bound(q * n_lists * k * 8 + q * k * 12, 0.0, f32_rate,
+                           byte_rate)
+        row = {"shape": f"Q={q} D={d} k={k} block_d={bd} lists={n_lists}",
+               "bound_ms": b_ms, "bound_by": b_by}
+        for label in MERGE_LABELS:
+            scores = merge_scores(label, q, d, k, gen)
+            cv, ci = topk_blocks(scores, k, bd)
+            gv, gi = check(cv, ci, k, f"({q}, {d}) k={k} {label}")
+            if label == "normal":
+                # the two-stage op: one launch of each stage, the same bits
+                c0 = tracing.counters()
+                sv, si = streaming_topk(scores, k, use_kernel=True)
+                c1 = tracing.counters()
+                row["two_stage_launches"] = {n: c1.get(n, 0) - c0.get(n, 0)
+                                             for n in ("topk_blocks.launches",
+                                                       "topk_merge.launches")}
+                if set(row["two_stage_launches"].values()) != {1} or not (
+                        torch.equal(sv.view(torch.int32),
+                                    gv.view(torch.int32))
+                        and torch.equal(si, gi)):
+                    raise AssertionError(f"streaming_topk at ({q}, {d}) "
+                                         f"k={k}: {row}")
+                del sv, si
+            del scores, gv, gi
+            key = "ms" if label == "normal" else f"ms_{label}"
+            row[key] = cuda_ms(lambda: topk_merge(cv, ci, k), 20)
+            if label == "normal":
+                row["library_ms"] = cuda_ms(
+                    lambda: topk_score_then_id(cv, ci, k), 5)
+            del cv, ci
+            torch.cuda.empty_cache()
+        print(f"[kernel] topk_merge ({q}, {d}) k={k}: ids and value bits "
+              f"equal to the sort path on {', '.join(MERGE_LABELS)}; "
+              f"{row['ms']:.4f} ms (sorts {row['library_ms']:.4f}, bound "
+              f"{b_ms:.4f})")
+        if rec is None:
+            rec = {"name": "topk_merge", "route": "cuda",
+                   "source": "src/repro_torch/csrc/topk_blocks.cu",
+                   "replaces": "src/repro/kernels/topk_blocks/ops.py:23",
+                   "library_call": "topk_score_then_id (two stable "
+                                   "segmented sorts and four gathers)",
+                   **row}
+        else:
+            rec[f"k{k}" if q == Q else f"q{q}"] = row
+    torch.cuda.synchronize()
+    rec["launches"] = tracing.counters().get("topk_merge.launches", 0) \
+        - before
+    rec["card"] = smi
+    print(f"[kernel] topk_merge {json.dumps(rec)}")
+    return rec
 
 
 def ranking_agrees(got, want, exact: bool, cut=None) -> tuple[bool, float]:
@@ -4358,6 +4478,7 @@ def run_phases(args, smi: str, t_start: float,
         rates = card_rates(smi)
         kernels = phase_kernels(rates) + [phase_ivf_kernel(rates),
                                           phase_quantize_kernel(rates)]
+        phase_topk_merge(rates, smi)
         lap("kernels")
         dryrun.start()
         kb = kb_on_card(main_kb, "main", args)

@@ -1,8 +1,39 @@
-// Stage 1 of the exact two-stage top-k: (Q, D) f32 scores → for each block
-// of block_d columns its top k, as (Q, n_blocks·k) values and global
-// column indices in (value desc, column asc) order.  Stage 2
-// (repro_torch/kernels/topk_blocks/ops.py) ranks the candidates by
-// (score desc, id asc).
+// The exact two-stage top-k.  Stage 1 (topk_blocks_kernel,
+// topk_warp_kernel): (Q, D) f32 scores → for each block of block_d columns
+// its top k, as (Q, n_blocks·k) values and global int32 column indices.
+// Stage 2 (topk_merge_kernel): those candidates → the row's top k by
+// (score desc, id asc), raw value bits and int64 ids.
+//
+// Stage 2 replaces the lax.top_k of src/repro/kernels/topk_blocks/ops.py
+// (stage 2 there), which the port ran as two stable segmented sorts of
+// every candidate.  Its input is stage 1's output, and it relies on what
+// stage 1 guarantees: a row is n_blocks lists of k entries, each sorted
+// by (key desc, column asc) with key_of's keys (−0.0 as +0.0, −inf and
+// pads as 0), and the lists come in column order.  So among equal keys
+// position order is id order, and sorting (key desc, position asc) gives
+// (score desc, id asc).  The −inf entries are stage 1's pads (−inf, the
+// block's first column): their position order is their id order too.
+// - A bound first: with c = ⌈k / n_blocks⌉ the first c entries of every
+//   list hold at least k keys, so their k-th largest key τ₀ (radix select
+//   over those heads, histograms in shared memory) is at or below the
+//   row's k-th key.  Every entry of the answer has a key ≥ τ₀ and lies in
+//   the run of its list at or above τ₀.  Each list is walked from its head
+//   (gallop, then bisect) to the end of that run; the runs (usually 1–3·k
+//   entries) are gathered by a shared count and sorted (bitonic), and the
+//   first k written.  Ids are read only for the k entries written.
+// - Where the runs overflow the buffer (heavy ties at τ₀): radix select of
+//   the row's k-th key over the entries at or above τ₀, the keys above it,
+//   and of the keys equal to it the lowest positions by a block-wide
+//   prefix count; then the k survivors are sorted.  Slower, same output.
+// - Rows with fewer than k entries above −inf (τ₀ is then 0): the live
+//   entries sorted, then the −inf entries in position order.
+// The buffer holds the power of two ≥ 4k entries in shared memory, or ≥ 2k
+// in a global scratch the wrapper allocates where 4k passes 8,192.  A CTA
+// a query row.  Bound on an H100 SXM (3.35 TB/s): reading every candidate
+// once and writing the output once, (1,024 × 51,300) candidates at k = 100
+// take 0.126 ms; the bound and the runs read a few KB a row.
+//
+// Stage 1:
 //
 // Replaces src/repro/kernels/topk_blocks/kernel.py::topk_blocks_pallas
 // (tile body _topk_tile_kernel).  That kernel runs k rounds of "max, then
@@ -200,12 +231,129 @@ size_t smem_bytes(bool tile, int block_d, int cap, bool sort_in_smem) {
   return b + (sort_in_smem ? static_cast<size_t>(cap) * 8 : 0);
 }
 
-// Sort ``found`` entries of ``cand`` (found ≤ the buffer) by (key desc,
-// column asc) and write the first kk of them.
-template <int NT, bool TILE>
-__device__ void sort_and_write(unsigned long long* cand, int found, int kk,
-                               const unsigned* tile, const float* s,
-                               int base, float* out_v, int* out_i) {
+// Where the kk-th largest key lies: its bits above ``shift`` are
+// ``prefix``, it is the kr-th largest of the keys with that prefix, and
+// ``whole``: every key with that prefix is among the kk largest (then
+// ``prefix << shift`` is at or below the kk-th key; otherwise shift is 0
+// and ``prefix`` the key itself).
+struct Rank {
+  unsigned prefix;
+  int shift;
+  unsigned kr;
+  bool whole;
+};
+
+// Radix select of the kk-th largest of the keys that ``visit`` hands each
+// thread (1 ≤ kk ≤ their number): 8-bit passes from the top, one barrier
+// a pass (every warp scans the histogram itself, and the next pass counts
+// into another of the three histograms, cleared while this one fills),
+// stopping once the bin holding the key is taken whole.
+template <int NT, typename Visit>
+__device__ Rank radix_rank(Visit visit, unsigned kk, unsigned (*hist)[256]) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  __syncthreads();  // no thread still reads hist[0]
+  for (int b = tid; b < 256; b += NT) hist[0][b] = 0;
+  __syncthreads();
+  unsigned prefix = 0, kr = kk, cnt = 0;
+  int shift = 24;
+  for (int pass = 0;; ++pass, shift -= 8) {
+    unsigned* h = hist[pass % 3];
+    unsigned* h_next = hist[(pass + 1) % 3];
+    for (int b = tid; b < 256; b += NT) h_next[b] = 0;
+    visit([&](unsigned key) {
+      if (shift == 24 || (key >> (shift + 8)) == prefix)
+        atomicAdd(&h[(key >> shift) & 255], 1u);
+    });
+    __syncthreads();
+    // lane l holds bins 255 − 8l … 248 − 8l; count from the top
+    unsigned cb[8], local = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      cb[j] = h[255 - 8 * lane - j];
+      local += cb[j];
+    }
+    unsigned incl = local;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned o = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += o;
+    }
+    unsigned above = incl - local, bin = 0, nkr = 0, ncnt = 0;
+    const bool here = above < kr && kr <= incl;
+    if (here) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (above + cb[j] >= kr) {
+          bin = 255 - 8 * lane - j;
+          nkr = kr - above;
+          ncnt = cb[j];
+          break;
+        }
+        above += cb[j];
+      }
+    }
+    const int src = __ffs(__ballot_sync(FULL, here)) - 1;
+    prefix = (prefix << 8) | __shfl_sync(FULL, bin, src);
+    kr = __shfl_sync(FULL, nkr, src);
+    cnt = __shfl_sync(FULL, ncnt, src);
+    if (cnt == kr || shift == 0) break;
+  }
+  return {prefix, shift, kr, cnt == kr};
+}
+
+// Place in ``cand`` the entries of the kk largest keys of positions
+// [0, n), as ``rank`` (radix_rank's, over the keys ≥ ``floor``) locates
+// the kk-th: every key above it, and all of its bin when that is taken
+// whole, otherwise of the keys equal to it the lowest positions.  Keys
+// below ``floor`` take no part.  ``*n_found`` is 0 on entry.
+template <int NT, typename KeyAt>
+__device__ void take_ranked(KeyAt key_at, int n, unsigned floor,
+                            const Rank& rank, unsigned long long* cand,
+                            unsigned* n_found, unsigned* wsum) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  const unsigned lane_lt = (1u << lane) - 1u;
+  for (int i0 = 0; i0 < n; i0 += NT) {
+    const int i = i0 + tid;
+    bool keep = false;
+    unsigned key = 0;
+    if (i < n) {
+      key = key_at(i);
+      const unsigned hi = key >> rank.shift;
+      keep = key >= floor &&
+             (hi > rank.prefix || (rank.whole && hi == rank.prefix));
+    }
+    const unsigned m = __ballot_sync(FULL, keep);
+    unsigned slot = 0;
+    if (lane == 0 && m)
+      slot = atomicAdd(n_found, static_cast<unsigned>(__popc(m)));
+    slot = __shfl_sync(FULL, slot, 0) + __popc(m & lane_lt);
+    if (keep) cand[slot] = entry(key, i);
+  }
+  if (!rank.whole) {
+    // shift is 0 and prefix the kk-th key.  Contiguous positions a thread,
+    // so a prefix count over threads is a count in position order.
+    const int per = (n + NT - 1) / NT;
+    const int lo = min(n, tid * per);
+    const int hi = min(n, lo + per);
+    unsigned eq = 0;
+    for (int i = lo; i < hi; ++i) eq += key_at(i) == rank.prefix;
+    const unsigned before = block_exclusive_scan<NT>(eq, wsum);
+    unsigned quota = rank.kr > before ? min(rank.kr - before, eq) : 0u;
+    for (int i = lo; i < hi && quota > 0; ++i) {
+      if (key_at(i) == rank.prefix) {
+        cand[atomicAdd(n_found, 1u)] = entry(rank.prefix, i);
+        --quota;
+      }
+    }
+  }
+}
+
+// Sort ``found`` entries of ``cand`` (which holds the power of two ≥ found)
+// by (key desc, position asc) and hand the first kk ≤ found to
+// ``emit(rank, entry)``.
+template <int NT, typename Emit>
+__device__ void sort_and_emit(unsigned long long* cand, int found, int kk,
+                              Emit emit) {
   const int tid = threadIdx.x;
   int len = 1;
   while (len < found) len <<= 1;
@@ -213,28 +361,18 @@ __device__ void sort_and_write(unsigned long long* cand, int found, int kk,
     if (tid < 32) {
       const unsigned long long e =
           warp_sort_desc(tid < found ? cand[tid] : 0ull);
-      if (tid < kk) {
-        out_v[tid] = value_at<TILE>(tile, s, entry_col(e));
-        out_i[tid] = base + entry_col(e);
-      }
+      if (tid < kk) emit(tid, e);
     }
   } else if (len <= NT) {
     __syncthreads();  // cand is the block sort's exchange buffer
-    const unsigned long long e =
-        tid < found ? cand[tid] : 0ull;
+    const unsigned long long e = tid < found ? cand[tid] : 0ull;
     const unsigned long long sorted = block_sort_desc(e, len, cand);
-    if (tid < kk) {
-      out_v[tid] = value_at<TILE>(tile, s, entry_col(sorted));
-      out_i[tid] = base + entry_col(sorted);
-    }
+    if (tid < kk) emit(tid, sorted);
   } else {
     for (int i = found + tid; i < len; i += NT) cand[i] = 0ull;
     __syncthreads();
     sort_desc_mem<NT>(cand, len);
-    for (int r = tid; r < kk; r += NT) {
-      out_v[r] = value_at<TILE>(tile, s, entry_col(cand[r]));
-      out_i[r] = base + entry_col(cand[r]);
-    }
+    for (int r = tid; r < kk; r += NT) emit(r, cand[r]);
   }
 }
 
@@ -270,7 +408,6 @@ topk_blocks_kernel(const float* __restrict__ scores, float* __restrict__ vals,
     sh.n_found = 0;
     sh.bound = 0xffffffffu;
   }
-  for (int b = tid; b < 256; b += NT) sh.hist[0][b] = 0;
 
   // 1. the tile (raw bits, into shared memory), the count of elements above
   //    −inf and each thread's largest key
@@ -322,6 +459,10 @@ topk_blocks_kernel(const float* __restrict__ scores, float* __restrict__ vals,
   }
   if (kk == 0) return;
 
+  const auto write = [&](int r, unsigned long long e) {
+    out_v[r] = value_at<TILE>(tile, s, entry_col(e));
+    out_i[r] = base + entry_col(e);
+  };
   if (bounded) {
     // 2a. the keys at or above the bound (usually a few times k): count,
     //     place by a warp scan, write; when they fit, sort them all
@@ -349,7 +490,7 @@ topk_blocks_kernel(const float* __restrict__ scores, float* __restrict__ vals,
     __syncthreads();
     const int found = static_cast<int>(sh.n_found);
     if (found <= cap) {
-      sort_and_write<NT, TILE>(cand, found, kk, tile, s, base, out_v, out_i);
+      sort_and_emit<NT>(cand, found, kk, write);
       return;
     }
     __syncthreads();  // every thread has read n_found
@@ -357,95 +498,18 @@ topk_blocks_kernel(const float* __restrict__ scores, float* __restrict__ vals,
     __syncthreads();
   }
 
-  // 2. radix select of the kk-th largest key; one barrier a pass: every
-  //    warp scans the histogram itself, and the next pass counts into
-  //    another of the three histograms, cleared while this one fills
-  unsigned prefix = 0, kr = kk, cnt = 0;
-  int shift = 24;
-  for (int pass = 0;; ++pass, shift -= 8) {
-    unsigned* h = sh.hist[pass % 3];
-    unsigned* h_next = sh.hist[(pass + 1) % 3];
-    for (int b = tid; b < 256; b += NT) h_next[b] = 0;
-    for (int i = tid; i < n; i += NT) {
-      const unsigned key = key_at<TILE>(tile, s, i);
-      if (shift == 24 || (key >> (shift + 8)) == prefix)
-        atomicAdd(&h[(key >> shift) & 255], 1u);
-    }
-    __syncthreads();
-    // lane l holds bins 255 − 8l … 248 − 8l; count from the top
-    unsigned cb[8], local = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      cb[j] = h[255 - 8 * lane - j];
-      local += cb[j];
-    }
-    unsigned incl = local;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const unsigned o = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl += o;
-    }
-    unsigned above = incl - local, bin = 0, nkr = 0, ncnt = 0;
-    const bool here = above < kr && kr <= incl;
-    if (here) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (above + cb[j] >= kr) {
-          bin = 255 - 8 * lane - j;
-          nkr = kr - above;
-          ncnt = cb[j];
-          break;
-        }
-        above += cb[j];
-      }
-    }
-    const int src = __ffs(__ballot_sync(FULL, here)) - 1;
-    prefix = (prefix << 8) | __shfl_sync(FULL, bin, src);
-    kr = __shfl_sync(FULL, nkr, src);
-    cnt = __shfl_sync(FULL, ncnt, src);
-    if (cnt == kr || shift == 0) break;  // the bin is taken whole, or
-  }                                      // prefix is the full key
-
-  // 3. survivors: keys above the threshold, and all of the bin when it is
-  //    taken whole; otherwise (ties of one key) the lowest columns
-  const bool whole = cnt == kr;
-  const unsigned lane_lt = (1u << lane) - 1u;
-  for (int i0 = 0; i0 < n; i0 += NT) {
-    const int i = i0 + tid;
-    bool keep = false;
-    unsigned key = 0;
-    if (i < n) {
-      key = key_at<TILE>(tile, s, i);
-      const unsigned hi = key >> shift;
-      keep = hi > prefix || (whole && hi == prefix);
-    }
-    const unsigned m = __ballot_sync(FULL, keep);
-    unsigned slot = 0;
-    if (lane == 0 && m)
-      slot = atomicAdd(&sh.n_found, static_cast<unsigned>(__popc(m)));
-    slot = __shfl_sync(FULL, slot, 0) + __popc(m & lane_lt);
-    if (keep) cand[slot] = entry(key, i);
-  }
-  if (!whole) {
-    // contiguous column ranges a thread, so a prefix count over threads is
-    // a count in column order
-    const int per = (n + NT - 1) / NT;
-    const int lo = min(n, tid * per);
-    const int hi = min(n, lo + per);
-    unsigned eq = 0;
-    for (int i = lo; i < hi; ++i) eq += key_at<TILE>(tile, s, i) == prefix;
-    const unsigned before = block_exclusive_scan<NT>(eq, sh.wsum);
-    unsigned quota = kr > before ? min(kr - before, eq) : 0u;
-    for (int i = lo; i < hi && quota > 0; ++i) {
-      if (key_at<TILE>(tile, s, i) == prefix) {
-        cand[atomicAdd(&sh.n_found, 1u)] = entry(prefix, i);
-        --quota;
-      }
-    }
-  }
+  // 2. radix select of the kk-th largest key
+  const Rank rank = radix_rank<NT>(
+      [&](auto count) {
+        for (int i = tid; i < n; i += NT) count(key_at<TILE>(tile, s, i));
+      },
+      kk, sh.hist);
+  // 3. survivors: the kk largest keys, ties to the lowest columns
+  take_ranked<NT>([&](int i) { return key_at<TILE>(tile, s, i); }, n, 0u,
+                  rank, cand, &sh.n_found, sh.wsum);
   __syncthreads();
   // 4. (key desc, column asc)
-  sort_and_write<NT, TILE>(cand, kk, kk, tile, s, base, out_v, out_i);
+  sort_and_emit<NT>(cand, kk, kk, write);
 }
 
 // The main path's shape (block_d ≤ 1024, k ≤ 32): a warp per (row, block),
@@ -599,6 +663,128 @@ int launch(const void* scores, void* vals, void* idx, void* scratch, int n_q,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Stage 2: topk_merge_kernel (the header's first note), a CTA a query row.
+
+constexpr int MERGE_NT = 256;
+
+// the length of a list's run of keys ≥ tau (keys descend along a list):
+// gallop from the head, then bisect
+__device__ __forceinline__ int run_at_least(const float* list, int k,
+                                            unsigned tau) {
+  int lo = 0, hi = k;
+  for (int p = 0, step = 1; p < k; p += step, step <<= 1) {
+    if (key_of(__ldg(list + p)) < tau) {
+      hi = p;
+      break;
+    }
+    lo = p + 1;
+  }
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (key_of(__ldg(list + mid)) >= tau)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+template <int NT>
+__global__ void __launch_bounds__(NT)
+topk_merge_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
+                  float* __restrict__ out_v, long long* __restrict__ out_i,
+                  unsigned long long* __restrict__ scratch, int n_lists, int k,
+                  int cap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Shared sh;
+  const int tid = threadIdx.x;
+  const int n = n_lists * k;
+  const size_t row = blockIdx.x;
+  const float* v = vals + row * n;
+  const int* id = ids + row * n;
+  float* ov = out_v + row * k;
+  long long* oi = out_i + row * k;
+  unsigned long long* cand =
+      scratch != nullptr ? scratch + row * cap
+                         : reinterpret_cast<unsigned long long*>(smem);
+  if (tid == 0) sh.n_found = 0;
+
+  // 1. τ₀: the k-th largest of the heads, each list's first c entries
+  const int c = (k + n_lists - 1) / n_lists;
+  const int n_heads = n_lists * c;
+  const Rank head = radix_rank<NT>(
+      [&](auto count) {
+        for (int h = tid; h < n_heads; h += NT)
+          count(key_of(__ldg(v + static_cast<size_t>(h / c) * k + h % c)));
+      },
+      k, sh.hist);
+  const unsigned tau = max(1u, head.prefix << head.shift);
+
+  // 2. each list's run at or above τ, placed by a shared count
+  for (int l = tid; l < n_lists; l += NT) {
+    const float* list = v + static_cast<size_t>(l) * k;
+    const int m = run_at_least(list, k, tau);
+    if (m == 0) continue;
+    const unsigned at = atomicAdd(&sh.n_found, static_cast<unsigned>(m));
+    const int room = at < static_cast<unsigned>(cap)
+                         ? min(m, cap - static_cast<int>(at)) : 0;
+    for (int j = 0; j < room; ++j)
+      cand[at + j] = entry(key_of(__ldg(list + j)), l * k + j);
+  }
+  __syncthreads();
+  int found = static_cast<int>(sh.n_found);
+
+  if (found > cap) {
+    // 3. more than the buffer holds: the row's k largest among the entries
+    //    at or above τ, ties to the lowest positions
+    const Rank kth = radix_rank<NT>(
+        [&](auto count) {
+          for (int p = tid; p < n; p += NT) {
+            const unsigned key = key_of(__ldg(v + p));
+            if (key >= tau) count(key);
+          }
+        },
+        k, sh.hist);
+    if (tid == 0) sh.n_found = 0;
+    __syncthreads();
+    take_ranked<NT>([&](int p) { return key_of(__ldg(v + p)); }, n, tau, kth,
+                    cand, &sh.n_found, sh.wsum);
+    __syncthreads();
+    found = k;
+  }
+
+  // 4. (key desc, position asc); raw value bits, ids read for these alone
+  sort_and_emit<NT>(cand, found, min(k, found),
+                    [&](int r, unsigned long long e) {
+                      const int p = entry_col(e);
+                      ov[r] = v[p];
+                      oi[r] = id[p];
+                    });
+
+  if (found < k) {
+    // 5. fewer than k entries above −inf (τ₀ was 0, τ 1): the −inf entries
+    //    next, in position order; contiguous lists a thread, so a prefix
+    //    count over threads runs in position order
+    const int per = (n_lists + NT - 1) / NT;
+    const int l0 = min(n_lists, tid * per);
+    const int l1 = min(n_lists, l0 + per);
+    unsigned pads = 0;
+    for (int l = l0; l < l1; ++l)
+      pads += k - run_at_least(v + static_cast<size_t>(l) * k, k, 1u);
+    unsigned r = block_exclusive_scan<NT>(pads, sh.wsum);
+    const unsigned need = static_cast<unsigned>(k - found);
+    for (int l = l0; l < l1 && r < need; ++l) {
+      const int base = l * k;
+      for (int j = run_at_least(v + base, k, 1u); j < k && r < need;
+           ++j, ++r) {
+        ov[found + r] = v[base + j];
+        oi[found + r] = id[base + j];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // p2: the survivors' sort length, the power of two ≥ min(k, block_d);
@@ -629,4 +815,25 @@ extern "C" int topk_blocks_launch(const void* scores, void* vals, void* idx,
                              n_blocks, p2, st);
   return launch<128, true>(scores, vals, idx, scratch, n_q, n_d, k, block_d,
                            n_blocks, p2, st);
+}
+
+// cap: the survivors' buffer, a power of two ≥ k; scratch: null (the buffer
+// in shared memory) or n_q·cap uint64 entries.
+extern "C" int topk_merge_launch(const void* vals, const void* ids,
+                                 void* out_v, void* out_i, void* scratch,
+                                 int n_q, int n_lists, int k, int cap,
+                                 void* stream) {
+  auto kern = topk_merge_kernel<MERGE_NT>;
+  const size_t smem =
+      scratch == nullptr ? static_cast<size_t>(cap) * 8 : 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<static_cast<unsigned>(n_q), MERGE_NT, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vals), static_cast<const int*>(ids),
+      static_cast<float*>(out_v), static_cast<long long*>(out_i),
+      static_cast<unsigned long long*>(scratch), n_lists, k, cap);
+  return static_cast<int>(cudaGetLastError());
 }

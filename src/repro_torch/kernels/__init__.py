@@ -13,7 +13,11 @@ are built by :mod:`repro_torch.kernels._build` at first use.
 - ``binary_ip``   : 1-bit index scoring, the sign dot on the tensor cores
                     (s8 × 0/1 bits), written as the f32 score 0.25·dot.
 - ``topk_blocks`` : per-block top-k, stage 1 of the exact two-stage top-k,
-                    one pass over each block whatever k is.
+                    one pass over each block whatever k is; beside it
+                    ``topk_merge``, stage 2, which merges the blocks'
+                    sorted lists (it replaces ``lax.top_k``, not a Pallas
+                    kernel, so it is not among ``WRAPPERS``; its counter
+                    is ``topk_merge.launches``).
 - ``ivf_fused``   : IVF search, list-major: the probe table inverted, each
                     probed list scored once for its (query, slot) pairs,
                     each query's candidates merged (wrapper

@@ -1,11 +1,14 @@
-"""Wrapper of the per-block top-k kernel (``csrc/topk_blocks.cu``).
+"""Wrappers of the two stages of the exact top-k (``csrc/topk_blocks.cu``).
 
-Replaces ``repro.kernels.topk_blocks.kernel.topk_blocks_pallas``: (Q, D)
-f32 scores → for each block of ``block_d`` columns its top k as
-(Q, n_blocks·k) values and global int32 column indices, equal values to
-the lowest column.  CUDA tensors launch the kernel (or raise); CPU tensors
-run :func:`~repro_torch.kernels.topk_blocks.ref.topk_blocks_ref`, and meta
-tensors (an abstract pass, which has no values) one ``torch.topk``.
+``topk_blocks`` replaces ``repro.kernels.topk_blocks.kernel.
+topk_blocks_pallas``: (Q, D) f32 scores → for each block of ``block_d``
+columns its top k as (Q, n_blocks·k) values and global int32 column
+indices, equal values to the lowest column.  ``topk_merge`` replaces the
+``lax.top_k`` of ``repro.kernels.topk_blocks.ops`` (stage 2): those
+candidates → the row's top k by (score desc, id asc), int64 ids.  CUDA
+tensors launch the kernel (or raise); CPU tensors run the plain version
+(:mod:`~repro_torch.kernels.topk_blocks.ref`), and meta tensors (an
+abstract pass, which has no values) one ``torch.topk``.
 """
 
 from __future__ import annotations
@@ -15,11 +18,16 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.kernels import _build
-from repro_torch.kernels.topk_blocks.ref import topk_blocks_ref
+from repro_torch.kernels.topk_blocks.ref import (topk_blocks_ref,
+                                                 topk_merge_ref)
 from repro_torch.utils import cdiv
 
 #: survivors sorted in shared memory; a longer sort runs in a global scratch
 MAX_SMEM_SORT = 8192
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 def _topk_blocks_meta(scores: torch.Tensor, k: int, block_d: int
@@ -75,3 +83,61 @@ def topk_blocks(scores: torch.Tensor, k: int, block_d: int
                 "topk_blocks")
         tracing.count("topk_blocks.launches")
     return vals, idx
+
+
+def _merge_buffer(k: int) -> tuple[int, bool]:
+    """(entries, in shared memory?) of ``topk_merge``'s survivors' buffer:
+    the power of two ≥ 4k while that is at most ``MAX_SMEM_SORT``, else
+    the power of two ≥ 2k in a global scratch.  More survivors than it
+    holds (heavy ties) take the kernel's exact path."""
+    cap = next_pow2(4 * k)
+    if cap <= MAX_SMEM_SORT:
+        return cap, True
+    return next_pow2(2 * k), False
+
+
+def topk_merge(vals: torch.Tensor, idx: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2: ``topk_blocks``' (Q, n_blocks·k) candidates → the row's top
+    k, (Q, k) f32 values (their bits as given) and int64 ids, by (score
+    desc, id asc).  The kernel relies on stage 1's order: each block's k
+    entries by (value desc, column asc), the blocks in column order."""
+    if (vals.dtype != torch.float32 or idx.dtype != torch.int32
+            or vals.ndim != 2 or idx.shape != vals.shape):
+        raise TypeError(f"topk_merge takes (Q, n_blocks·k) float32 values "
+                        f"and int32 ids, got {vals.dtype} "
+                        f"{tuple(vals.shape)} and {idx.dtype} "
+                        f"{tuple(idx.shape)}")
+    n_q, n = vals.shape
+    if not ((k == 0 and n == 0) or (k >= 1 and n >= k and n % k == 0)):
+        raise ValueError(f"topk_merge needs lists of k: {n} candidates a "
+                         f"row, k={k}")
+    if vals.device != idx.device:
+        raise ValueError(f"topk_merge: values on {vals.device}, ids on "
+                         f"{idx.device}")
+    if not (vals.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("topk_merge takes contiguous candidates")
+    if vals.device.type == "meta":
+        # an abstract pass's stand-in: the outputs' shapes and dtypes from
+        # one torch.topk, which reads the candidates once, as the kernel
+        # does at most
+        return torch.topk(vals, k)
+    if vals.device.type == "cpu":
+        return topk_merge_ref(vals, idx, k)
+    if vals.device.type != "cuda":
+        raise ValueError(f"topk_merge: unsupported device {vals.device}")
+    out_v = torch.empty((n_q, k), dtype=torch.float32, device=vals.device)
+    out_i = torch.empty((n_q, k), dtype=torch.int64, device=vals.device)
+    if n_q and k:
+        cap, in_smem = _merge_buffer(k)
+        scratch = (None if in_smem else
+                   torch.empty(n_q * cap, dtype=torch.int64,
+                               device=vals.device))
+        with torch.cuda.device(vals.device):
+            _build.check(_build.library().topk_merge_launch(
+                vals.data_ptr(), idx.data_ptr(), out_v.data_ptr(),
+                out_i.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None, n_q,
+                n // k, k, cap, _build.stream_handle(vals)), "topk_merge")
+        tracing.count("topk_merge.launches")
+    return out_v, out_i

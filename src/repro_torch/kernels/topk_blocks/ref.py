@@ -3,8 +3,9 @@
 ``topk_blocks_ref`` runs the Pallas tile kernel's own algorithm on every
 block of ``block_d`` columns at once: k rounds of max, the lowest column
 holding it, then that column set to −inf; columns past D are −inf pads.
-``topk_ref`` is exact top-k over the full row with ties to the lowest
-column — ``lax.top_k``'s order.
+``topk_merge_ref`` is stage 2: the row's top k of those candidates by
+(score desc, id asc).  ``topk_ref`` is exact top-k over the full row with
+ties to the lowest column — ``lax.top_k``'s order.
 """
 
 from __future__ import annotations
@@ -36,6 +37,17 @@ def topk_blocks_ref(scores: torch.Tensor, k: int, block_d: int
         idx[..., i] = am + base
         s.scatter_(-1, am[..., None], NEG_INF)
     return vals.reshape(n_q, -1), idx.reshape(n_q, -1)
+
+
+def topk_merge_ref(vals: torch.Tensor, idx: torch.Tensor, k: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2 over (Q, n_blocks·k) candidates → (Q, k) values and int64
+    ids by (score desc, id asc), by ``topk_score_then_id``'s two stable
+    sorts: ``topk_merge``'s CPU path."""
+    from repro_torch.retrieval.topk import topk_score_then_id
+
+    vals, idx = topk_score_then_id(vals, idx, k)
+    return vals, idx.long()
 
 
 def topk_ref(scores: torch.Tensor, k: int

@@ -2,10 +2,11 @@
 
 Counterpart of ``repro.retrieval.topk``.  Every ranking here is the strict
 ``(score desc, id asc)`` order.  ``torch.topk`` and an unstable
-``torch.sort`` promise nothing among ties, so ranking is done by two
+``torch.sort`` promise nothing among ties, so ranking here is done by two
 stable sorts (by id, then by −score), and per-chunk top-k goes through the
-``topk_blocks`` two-stage top-k, whose ties go to the lowest column — the
-order ``lax.top_k`` gives in ``repro``.
+two-stage top-k (``topk_blocks``, then ``topk_merge``, which merges the
+blocks' sorted lists without a sort), whose ties go to the lowest column
+— the order ``lax.top_k`` gives in ``repro``.
 """
 
 from __future__ import annotations
@@ -170,8 +171,9 @@ def topk_search(queries: torch.Tensor, docs: torch.Tensor, k: int,
     """Exact top-k over the document axis, streamed in chunks.
 
     Returns (scores (Q, k), indices (Q, k)) in (score desc, id asc) order.
-    Each chunk's top-k runs through ``topk_blocks`` (the Hopper kernel
-    where ``backend`` resolves to kernel numerics on a CUDA tensor).
+    Each chunk's top-k runs through ``topk_blocks`` and ``topk_merge``
+    (the Hopper kernels where ``backend`` resolves to kernel numerics on a
+    CUDA tensor).
     """
     from repro_torch.kernels.topk_blocks.ops import streaming_topk
 

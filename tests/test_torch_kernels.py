@@ -38,8 +38,11 @@ from repro_torch.kernels.int8_ip import ops as p_iops  # noqa: E402
 from repro_torch.kernels.int8_ip.kernel import int8_ip  # noqa: E402
 from repro_torch.kernels.int8_ip.ref import int8_ip_ref  # noqa: E402
 from repro_torch.kernels.topk_blocks import ops as p_tops  # noqa: E402
-from repro_torch.kernels.topk_blocks.kernel import topk_blocks  # noqa: E402
+from repro_torch import tracing  # noqa: E402
+from repro_torch.kernels.topk_blocks.kernel import (topk_blocks,  # noqa: E402
+                                                    topk_merge)
 from repro_torch.kernels.topk_blocks.ref import topk_blocks_ref  # noqa: E402
+from repro_torch.retrieval.topk import topk_score_then_id  # noqa: E402
 
 
 def _rand(rng, *shape):
@@ -325,6 +328,57 @@ def test_streaming_topk_matches_repro(q, d, k, bd, ties):
         np.testing.assert_array_equal(gi.numpy(), np.asarray(want[1]))
 
 
+def _normal(q, d):
+    return lambda: _rand(np.random.default_rng(q * d), q, d)
+
+
+def _ties_at_kth():
+    """Values 0 … 3 over 300 columns: each row's k-th value is held by
+    ~75 columns across every block."""
+    return np.random.default_rng(3).integers(0, 4, (4, 300)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("case,k,bd", [
+    (_normal(3, 200), 4, 16),        # 13 lists ≥ k = 4; ragged last block
+    (_normal(3, 100), 10, 32),       # 4 lists < k = 10; ragged last block
+    (_normal(4, 20), 20, 8),         # k > block_d: −inf pads in each list
+    (_ties_at_kth, 8, 32),           # heavy ties at the k-th value
+    (_signed_zeros, 5, 8),           # −0.0 and +0.0 tied, both orders
+    (_more_neg_inf_than_k, 6, 8),    # fewer than k finite entries a row
+    (_normal(3, 50), 10, 64)],       # a single block
+    ids=["lists_ge_k", "lists_lt_k", "k_gt_block", "ties_at_kth",
+         "signed_zeros", "few_finite", "one_block"])
+def test_topk_merge_is_stage_two(case, k, bd):
+    """``topk_merge`` on CPU tensors (its plain version) is stage 2 on
+    ``topk_blocks_ref``'s candidates bit for bit, and the full row's top k
+    (ids equal wherever the value is finite: the full row's −inf slots
+    name the row's lowest −inf columns, stage 2's the blocks' pads).  On
+    meta tensors it gives the outputs' shapes and dtypes; it launches
+    nothing on the CPU."""
+    scores = torch.from_numpy(case())
+    k = min(k, scores.shape[1])
+    cv, ci = topk_blocks_ref(scores, k, bd)
+    launches = tracing.counters().get("topk_merge.launches", 0)
+    gv, gi = topk_merge(cv, ci, k)
+    assert tracing.counters().get("topk_merge.launches", 0) == launches
+    wv, wi = topk_score_then_id(cv, ci, k)
+    assert gi.dtype == torch.int64 and gv.shape == (scores.shape[0], k)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+    assert torch.equal(gi, wi.long())
+    rv, ri = p_tops.streaming_topk(scores, k, use_kernel=False)
+    fin = torch.isfinite(rv)
+    assert torch.equal(gv.view(torch.int32), rv.view(torch.int32))
+    assert torch.equal(gi[fin], ri[fin])
+    sv, si = p_tops.streaming_topk(scores, k, use_kernel=True, block_d=bd)
+    assert torch.equal(sv.view(torch.int32), gv.view(torch.int32))
+    assert torch.equal(si, gi)
+    mv, mi = topk_merge(cv.to("meta"), ci.to("meta"), k)
+    assert mv.device.type == mi.device.type == "meta"
+    assert (mv.shape, mv.dtype, mi.shape, mi.dtype) == \
+        (gv.shape, torch.float32, gi.shape, torch.int64)
+
+
 @pytest.mark.parametrize("k,want", [(1, 1024), (10, 1024), (1024, 32768),
                                     (1025, 32768), (5000, 32768),
                                     (100, 4096), (110, 4096), (1010, 32768),
@@ -355,6 +409,13 @@ def test_wrappers_reject_wrong_types():
                   torch.zeros(3, 1, dtype=torch.int32))
     with pytest.raises(TypeError):
         topk_blocks(torch.zeros(2, 4, dtype=torch.float64), 2, 4)
+    with pytest.raises(TypeError):
+        topk_merge(torch.zeros(2, 4), torch.zeros(2, 4, dtype=torch.int64), 2)
+    with pytest.raises(ValueError):
+        topk_merge(torch.zeros(2, 6), torch.zeros(2, 6, dtype=torch.int32), 4)
+    with pytest.raises(ValueError):
+        topk_merge(torch.zeros(4, 2).T, torch.zeros(4, 2, dtype=torch.int32).T,
+                   2)
 
 
 def test_cpu_tensors_never_count_as_launches():
