@@ -29,9 +29,10 @@
 //   entries sorted, then the −inf entries in position order.
 // The buffer holds the power of two ≥ 4k entries in shared memory, or ≥ 2k
 // in a global scratch the wrapper allocates where 4k passes 8,192.  A CTA
-// a query row.  Bound on an H100 SXM (3.35 TB/s): reading every candidate
-// once and writing the output once, (1,024 × 51,300) candidates at k = 100
-// take 0.126 ms; the bound and the runs read a few KB a row.
+// a query row.  A row that takes the overflow path adds 1 to ``ties`` (the
+// wrapper's device counter topk_merge.tie_rows).  Bound on an H100 SXM (3.35 TB/s): reading every candidate once and writing the
+// output once, (1,024 × 51,300) candidates at k = 100 take 0.126 ms; the
+// bound and the runs read a few KB a row.
 //
 // Stage 1:
 //
@@ -65,6 +66,9 @@
 //   is taken whole; keys above it are kept and, of the keys equal to it,
 //   the lowest columns by a block-wide prefix count in column order; then
 //   the k survivors are sorted.
+// A (row, block) tile that takes the radix select, or the warp kernel's
+// rounds below, adds 1 to ``ties`` (the wrapper's device counter
+// topk_blocks.tie_tiles), one atomic a tile that takes it.
 // Shapes: the main path's (block_d ≤ 1024, k ≤ 32) runs a warp per block
 // with the tile in registers and no block barriers (below); other blocks a
 // CTA per block with the tile in shared memory (16 bytes a thread where
@@ -380,7 +384,8 @@ template <int NT, bool TILE>
 __global__ void __launch_bounds__(NT)
 topk_blocks_kernel(const float* __restrict__ scores, float* __restrict__ vals,
                    int* __restrict__ idx,
-                   unsigned long long* __restrict__ scratch, int n_d, int k,
+                   unsigned long long* __restrict__ scratch,
+                   unsigned long long* __restrict__ ties, int n_d, int k,
                    int block_d, int n_blocks, int p2) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Shared sh;
@@ -499,6 +504,7 @@ topk_blocks_kernel(const float* __restrict__ scores, float* __restrict__ vals,
   }
 
   // 2. radix select of the kk-th largest key
+  if (tid == 0) atomicAdd(ties, 1ull);
   const Rank rank = radix_rank<NT>(
       [&](auto count) {
         for (int i = tid; i < n; i += NT) count(key_at<TILE>(tile, s, i));
@@ -533,8 +539,9 @@ __device__ __forceinline__ float value_of(unsigned key, const float* s,
 
 __global__ void __launch_bounds__(32 * WARP_CTA, WARP_CTAS_PER_SM)
 topk_warp_kernel(const float* __restrict__ scores, float* __restrict__ vals,
-                 int* __restrict__ idx, int n_q, int n_d, int k, int block_d,
-                 int n_blocks) {
+                 int* __restrict__ idx,
+                 unsigned long long* __restrict__ ties, int n_q, int n_d,
+                 int k, int block_d, int n_blocks) {
   __shared__ unsigned long long buf[WARP_CTA][64];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const long long tile_id = static_cast<long long>(blockIdx.x) * WARP_CTA + warp;
@@ -616,6 +623,7 @@ topk_warp_kernel(const float* __restrict__ scores, float* __restrict__ vals,
     }
   } else {
     // rounds: lane r keeps the r-th pick
+    if (lane == 0) atomicAdd(ties, 1ull);
     unsigned long long last = ~0ull;
     best = 0;
     for (int r = 0; r < kk; ++r) {
@@ -643,9 +651,9 @@ topk_warp_kernel(const float* __restrict__ scores, float* __restrict__ vals,
 }
 
 template <int NT, bool TILE>
-int launch(const void* scores, void* vals, void* idx, void* scratch, int n_q,
-           int n_d, int k, int block_d, int n_blocks, int p2,
-           cudaStream_t stream) {
+int launch(const void* scores, void* vals, void* idx, void* scratch,
+           void* ties, int n_q, int n_d, int k, int block_d, int n_blocks,
+           int p2, cudaStream_t stream) {
   auto kern = topk_blocks_kernel<NT, TILE>;
   const size_t smem = smem_bytes(TILE, block_d, cand_cap(p2, NT, block_d),
                                  scratch == nullptr);
@@ -658,8 +666,8 @@ int launch(const void* scores, void* vals, void* idx, void* scratch, int n_q,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   kern<<<static_cast<unsigned>(ctas), NT, smem, stream>>>(
       static_cast<const float*>(scores), static_cast<float*>(vals),
-      static_cast<int*>(idx), static_cast<unsigned long long*>(scratch), n_d,
-      k, block_d, n_blocks, p2);
+      static_cast<int*>(idx), static_cast<unsigned long long*>(scratch),
+      static_cast<unsigned long long*>(ties), n_d, k, block_d, n_blocks, p2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -694,7 +702,8 @@ template <int NT>
 __global__ void __launch_bounds__(NT)
 topk_merge_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
                   float* __restrict__ out_v, long long* __restrict__ out_i,
-                  unsigned long long* __restrict__ scratch, int n_lists, int k,
+                  unsigned long long* __restrict__ scratch,
+                  unsigned long long* __restrict__ ties, int n_lists, int k,
                   int cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Shared sh;
@@ -738,6 +747,7 @@ topk_merge_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
   if (found > cap) {
     // 3. more than the buffer holds: the row's k largest among the entries
     //    at or above τ, ties to the lowest positions
+    if (tid == 0) atomicAdd(ties, 1ull);
     const Rank kth = radix_rank<NT>(
         [&](auto count) {
           for (int p = tid; p < n; p += NT) {
@@ -788,10 +798,11 @@ topk_merge_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
 }  // namespace
 
 // p2: the survivors' sort length, the power of two ≥ min(k, block_d);
-// scratch: null (sort in shared memory) or n_q·n_blocks·p2 uint64 entries.
+// scratch: null (sort in shared memory) or n_q·n_blocks·p2 uint64 entries;
+// ties: one uint64 that each tile on the tie path adds 1 to.
 extern "C" int topk_blocks_launch(const void* scores, void* vals, void* idx,
-                                  void* scratch, int n_q, int n_d, int k,
-                                  int block_d, int n_blocks, int p2,
+                                  void* scratch, void* ties, int n_q, int n_d,
+                                  int k, int block_d, int n_blocks, int p2,
                                   void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (block_d <= WARP_TILE && k <= WARP_K) {
@@ -801,28 +812,30 @@ extern "C" int topk_blocks_launch(const void* scores, void* vals, void* idx,
       return static_cast<int>(cudaErrorInvalidConfiguration);
     topk_warp_kernel<<<static_cast<unsigned>(ctas), 32 * WARP_CTA, 0, st>>>(
         static_cast<const float*>(scores), static_cast<float*>(vals),
-        static_cast<int*>(idx), n_q, n_d, k, block_d, n_blocks);
+        static_cast<int*>(idx), static_cast<unsigned long long*>(ties), n_q,
+        n_d, k, block_d, n_blocks);
     return static_cast<int>(cudaGetLastError());
   }
   if (block_d > MAX_TILE)
-    return launch<512, false>(scores, vals, idx, scratch, n_q, n_d, k,
-                              block_d, n_blocks, p2, st);
+    return launch<512, false>(scores, vals, idx, scratch, ties, n_q,
+                              n_d, k, block_d, n_blocks, p2, st);
   if (block_d > 8192)
-    return launch<512, true>(scores, vals, idx, scratch, n_q, n_d, k, block_d,
-                             n_blocks, p2, st);
+    return launch<512, true>(scores, vals, idx, scratch, ties, n_q, n_d, k,
+                             block_d, n_blocks, p2, st);
   if (block_d > 2048)
-    return launch<256, true>(scores, vals, idx, scratch, n_q, n_d, k, block_d,
-                             n_blocks, p2, st);
-  return launch<128, true>(scores, vals, idx, scratch, n_q, n_d, k, block_d,
-                           n_blocks, p2, st);
+    return launch<256, true>(scores, vals, idx, scratch, ties, n_q, n_d, k,
+                             block_d, n_blocks, p2, st);
+  return launch<128, true>(scores, vals, idx, scratch, ties, n_q, n_d, k,
+                           block_d, n_blocks, p2, st);
 }
 
 // cap: the survivors' buffer, a power of two ≥ k; scratch: null (the buffer
-// in shared memory) or n_q·cap uint64 entries.
+// in shared memory) or n_q·cap uint64 entries; ties: one uint64 that each
+// row on the exact path adds 1 to.
 extern "C" int topk_merge_launch(const void* vals, const void* ids,
                                  void* out_v, void* out_i, void* scratch,
-                                 int n_q, int n_lists, int k, int cap,
-                                 void* stream) {
+                                 void* ties, int n_q, int n_lists, int k,
+                                 int cap, void* stream) {
   auto kern = topk_merge_kernel<MERGE_NT>;
   const size_t smem =
       scratch == nullptr ? static_cast<size_t>(cap) * 8 : 0;
@@ -834,6 +847,7 @@ extern "C" int topk_merge_launch(const void* vals, const void* ids,
          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vals), static_cast<const int*>(ids),
       static_cast<float*>(out_v), static_cast<long long*>(out_i),
-      static_cast<unsigned long long*>(scratch), n_lists, k, cap);
+      static_cast<unsigned long long*>(scratch),
+      static_cast<unsigned long long*>(ties), n_lists, k, cap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,12 +41,12 @@ SIGNATURES = {
     # (q signs i8, q row stride, docs words, docs row stride, out f32, n_q,
     #  n_docs, n_words, accumulate, stream)
     "binary_ip_launch": [_p, _i, _p, _i, _p, _i, _i, _i, _i, _p],
-    # (scores f32, vals f32, idx i32, sort scratch u64 | null, n_q, n_d, k,
-    #  block_d, n_blocks, sort length, stream)
-    "topk_blocks_launch": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p],
+    # (scores f32, vals f32, idx i32, sort scratch u64 | null, tie tiles
+    #  u64, n_q, n_d, k, block_d, n_blocks, sort length, stream)
+    "topk_blocks_launch": [_p] * 5 + [_i] * 6 + [_p],
     # (vals f32, ids i32, out vals f32, out ids i64, scratch u64 | null,
-    #  n_q, n_lists, k, buffer entries, stream)
-    "topk_merge_launch": [_p] * 5 + [_i] * 4 + [_p],
+    #  tie rows u64, n_q, n_lists, k, buffer entries, stream)
+    "topk_merge_launch": [_p] * 6 + [_i] * 4 + [_p],
     # (probes i32, q, storage, list ids i32, base f32, vals f32, ids i32,
     #  work i32, candidates f32, candidates i32, scratch f32 | null,
     #  scratch i32 | null, n_q, nprobe, nlist, L, w, k, m, backend, stream)

@@ -9,6 +9,12 @@ candidates → the row's top k by (score desc, id asc), int64 ids.  CUDA
 tensors launch the kernel (or raise); CPU tensors run the plain version
 (:mod:`~repro_torch.kernels.topk_blocks.ref`), and meta tensors (an
 abstract pass, which has no values) one ``torch.topk``.
+
+On the card each stage counts the inputs that took its slow tie path in
+a device counter of :mod:`repro_torch.tracing`: ``topk_blocks.tie_tiles``
+((row, block) tiles that took the radix select or the warp kernel's
+rounds, out of ``topk_blocks.tiles``, a host count) and
+``topk_merge.tie_rows`` (rows whose runs overflowed the buffer).
 """
 
 from __future__ import annotations
@@ -75,13 +81,15 @@ def topk_blocks(scores: torch.Tensor, k: int, block_d: int
                        device=s.device)
     idx = torch.empty((n_q, n_blocks * k), dtype=torch.int32, device=s.device)
     if n_q and n_d:
+        ties = tracing.device_counter("topk_blocks.tie_tiles", s.device)
         with torch.cuda.device(s.device):
             _build.check(_build.library().topk_blocks_launch(
                 s.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                scratch.data_ptr() if scratch is not None else None, n_q,
-                n_d, k, block_d, n_blocks, p2, _build.stream_handle(s)),
-                "topk_blocks")
+                scratch.data_ptr() if scratch is not None else None,
+                ties.data_ptr(), n_q, n_d, k, block_d, n_blocks, p2,
+                _build.stream_handle(s)), "topk_blocks")
         tracing.count("topk_blocks.launches")
+        tracing.count("topk_blocks.tiles", n_q * n_blocks)
     return vals, idx
 
 
@@ -133,11 +141,13 @@ def topk_merge(vals: torch.Tensor, idx: torch.Tensor, k: int
         scratch = (None if in_smem else
                    torch.empty(n_q * cap, dtype=torch.int64,
                                device=vals.device))
+        ties = tracing.device_counter("topk_merge.tie_rows", vals.device)
         with torch.cuda.device(vals.device):
             _build.check(_build.library().topk_merge_launch(
                 vals.data_ptr(), idx.data_ptr(), out_v.data_ptr(),
                 out_i.data_ptr(),
-                scratch.data_ptr() if scratch is not None else None, n_q,
-                n // k, k, cap, _build.stream_handle(vals)), "topk_merge")
+                scratch.data_ptr() if scratch is not None else None,
+                ties.data_ptr(), n_q, n // k, k, cap,
+                _build.stream_handle(vals)), "topk_merge")
         tracing.count("topk_merge.launches")
     return out_v, out_i

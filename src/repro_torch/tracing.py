@@ -18,6 +18,12 @@ timeline and it adds nothing to the device's busy time.
 ``count(name, n)`` is always on: one integer add under a lock.  The kernel wrappers
 count their launches through it (``<wrapper>.launches``).
 
+``device_counter(name, device)`` is a counter that lives on the device: a
+one-element int64 tensor that a kernel adds to (one ``atomicAdd`` a CTA or
+warp that takes the path counted), so a count of what the kernels did
+needs no synchronise where it is made.  Only :func:`counters` reads it,
+and that read waits for the device.
+
 :func:`records`, :func:`counters` and :func:`reset` read and clear the
 store.  At most ``MAX_RECORDS`` records are kept; a span past that is
 counted as ``tracing.dropped`` and not recorded.
@@ -46,6 +52,7 @@ _local = threading.local()          # each thread's stack of open spans
 _free_events: list = []             # CUDA timing events to reuse
 _counters: dict = {}
 _counters_lock = threading.Lock()
+_device_counters: dict = {}         # (name, device) → int64 tensor of one
 
 
 class _Record:
@@ -131,6 +138,19 @@ def count(name: str, n: int = 1) -> None:
         _counters[name] = _counters.get(name, 0) + n
 
 
+def device_counter(name: str, device) -> torch.Tensor:
+    """The counter ``name`` on ``device``: a one-element int64 tensor,
+    zero when made, for a kernel to add to.  Made on first use; the same
+    tensor after that, until :func:`reset` clears it."""
+    key = (name, torch.device(device))
+    with _counters_lock:
+        t = _device_counters.get(key)
+        if t is None:
+            t = _device_counters[key] = torch.zeros(1, dtype=torch.int64,
+                                                    device=key[1])
+    return t
+
+
 def enable() -> None:
     """Record spans whether or not a profiler records."""
     global _enabled
@@ -162,15 +182,28 @@ def records() -> list[dict]:
 
 
 def counters() -> dict[str, int]:
-    """{name: count} of every counter since its last reset."""
+    """{name: count} of every counter since its last reset, a device
+    counter summed over its devices (reading it waits for each device to
+    reach it).  A device counter's name is no host counter's."""
     with _counters_lock:
-        return dict(_counters)
+        out = dict(_counters)
+        held = list(_device_counters.items())
+    device: dict = {}
+    for (name, _), t in held:
+        device[name] = device.get(name, 0) + int(t.item())
+    out.update(device)
+    return out
 
 
 def reset(names=None) -> None:
     """Clear the records and every counter, or, given ``names``, only
-    those counters."""
+    those counters.  A device counter cleared is let go, and the next
+    :func:`device_counter` call makes it anew at zero (its memory is
+    reused only after the work already queued on its stream)."""
     with _counters_lock:
+        for key in [key for key in _device_counters
+                    if names is None or key[0] in names]:
+            del _device_counters[key]
         if names is not None:
             for name in names:
                 _counters.pop(name, None)

@@ -14,3 +14,6 @@ def pytest_configure(config):
         "markers",
         "slow: k-means / IVF fit-heavy tests, excluded from the CI fast "
         "lane (-m 'not slow'); the full tier-1 run still includes them")
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA card; skips itself without one "
+        "(run on the card with -m chip, in files that import no JAX)")

@@ -1,5 +1,5 @@
-"""``repro_torch.tracing``: spans inside the search paths and always-on
-counters.
+"""``repro_torch.tracing``: spans inside the search paths, always-on
+counters, and counters that live on the device.
 
 Off (no profiler recording, no ``enable()``), a span records nothing and
 opens no profiler scope.  On, the exact path gives ``search`` ⊃
@@ -7,7 +7,10 @@ opens no profiler scope.  On, the exact path gives ``search`` ⊃
 {``search.stages``, ``search.route``, ``search.ivf_fused``}; under a
 profiler each span is a ``repro_torch.*`` CPU op, not a user annotation,
 nested under the scope that encloses it.  Answers are the same bits
-either way, and the kernels' launch counts read as before.
+either way, and the kernels' launch counts read as before.  A device
+counter is read only by ``counters()``; on the card the top-k's tie
+counters rise on scores of a few values and stay at 0 on distinct ones
+(``-m chip``: this file imports no JAX, so it runs there).
 """
 
 import sys
@@ -24,6 +27,7 @@ from repro_torch.kernels import (WRAPPERS, launch_counts,  # noqa: E402
                                  reset_launch_counts)
 from repro_torch.kernels.topk_blocks.ops import (default_block_d,  # noqa: E402
                                                  streaming_topk)
+from repro_torch.kernels.topk_blocks.ref import topk_ref  # noqa: E402
 from repro_torch.retrieval.api import IndexSpec, build_index  # noqa: E402
 
 N_DOCS, DIM, Q, K = 3000, 64, 40, 10
@@ -265,3 +269,111 @@ def test_counters_lose_no_update_across_threads():
     finally:
         sys.setswitchinterval(switch)
     assert tracing.counters()["x"] == n_threads * n_adds
+
+
+def test_device_counters_add_read_and_reset():
+    """A device counter is one int64 a kernel adds to: the same tensor on
+    each call, read beside the host counters, and let go by a reset."""
+    c = tracing.device_counter("t.dev", "cpu")
+    assert c.dtype == torch.int64 and c.shape == (1,) and int(c) == 0
+    assert tracing.device_counter("t.dev", torch.device("cpu")) is c
+    c.add_(3)
+    tracing.device_counter("t.dev", "cpu").add_(2)
+    tracing.count("t.host", 4)
+    assert tracing.counters() == {"t.dev": 5, "t.host": 4}
+    assert launch_counts() == dict.fromkeys(WRAPPERS, 0)
+    tracing.reset(["t.host"])
+    assert tracing.counters() == {"t.dev": 5}
+    tracing.reset(["t.dev"])
+    assert tracing.counters() == {}
+    fresh = tracing.device_counter("t.dev", "cpu")
+    assert fresh is not c and int(fresh) == 0
+    fresh.add_(7)
+    tracing.reset()
+    assert tracing.counters() == {}
+    assert int(tracing.device_counter("t.dev", "cpu")) == 0
+
+
+def test_device_counter_is_made_once_across_threads():
+    """Threads asking for one counter at once all get the same tensor."""
+    n_threads = 8
+    got, barrier = [None] * n_threads, threading.Barrier(n_threads)
+
+    def work(i):
+        barrier.wait(timeout=60)
+        got[i] = tracing.device_counter("t.race", "cpu")
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    assert all(t is got[0] for t in got) and got[0] is not None
+
+
+def test_no_device_counter_is_read_inside_a_span(indexes, monkeypatch):
+    """Spans, counts and the search paths never read the counters (on the
+    card that read waits for the device): only ``counters()`` does."""
+    tracing.device_counter("t.dev", "cpu").add_(1)
+
+    def refuse(*a, **k):
+        raise AssertionError("the counters were read inside a span")
+    monkeypatch.setattr(tracing, "counters", refuse)
+    tracing.enable()
+    with tracing.span("search"):
+        tracing.count("t.host")
+        tracing.device_counter("t.dev", "cpu").add_(1)
+        indexes["exact"].search(indexes["queries"], K)
+        indexes["ivf"].search(indexes["queries"], K)
+        streaming_topk(torch.zeros(3, 2000), K, use_kernel=True)
+    assert [r["name"] for r in tracing.records()][:2] == \
+        ["search", "search"]
+    monkeypatch.undo()
+    assert tracing.counters()["t.dev"] == 2
+
+
+@pytest.mark.chip
+@pytest.mark.skipif(not torch.cuda.is_available(),
+                    reason="needs a CUDA card (torch.cuda.is_available() "
+                    "is False)")
+@pytest.mark.parametrize("k,block_d", [(100, 4096), (10, 1024)],
+                         ids=["cta_k100", "warp_k10"])
+def test_tie_counters_on_the_card(k, block_d):
+    """On the card: scores of three values (a third of each tile at the
+    top) send stage 1's tiles down the tie path (the radix select at k =
+    100, the warp kernel's rounds at k = 10) and stage 2's rows down the
+    overflow path; distinct scores leave both counters at 0.  Ids and
+    value bits equal ``topk_ref``'s either way.  The last block is half a
+    block: a last block of 100 columns, whose heads lie far below the
+    others', sends stage 2 down the overflow path on distinct scores too
+    (61 of 64 rows at k = 100)."""
+    card = "cuda:0"
+    g = torch.Generator(device=card).manual_seed(28)
+    n_q, n_d = 64, 8 * block_d + block_d // 2
+    n_blocks = -(-n_d // block_d)
+    cases = {
+        "distinct": torch.randn(n_q, n_d, generator=g, device=card),
+        "three_values": 0.25 * torch.randint(
+            0, 3, (n_q, n_d), generator=g, device=card).float()}
+    for label, scores in cases.items():
+        tracing.reset()
+        vals, ids = streaming_topk(scores, k, use_kernel=True,
+                                   block_d=block_d)
+        got = tracing.counters()
+        want_v, want_i = topk_ref(scores.cpu(), k)
+        assert torch.equal(vals.cpu().view(torch.int32),
+                           want_v.view(torch.int32)), label
+        assert torch.equal(ids.cpu(), want_i), label
+        assert got["topk_blocks.tiles"] == n_q * n_blocks
+        tiles, rows = got["topk_blocks.tie_tiles"], got["topk_merge.tie_rows"]
+        if label == "distinct":
+            assert tiles == 0 and rows == 0, got
+        else:
+            assert 0 < tiles <= n_q * n_blocks and rows == n_q, got
