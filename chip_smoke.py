@@ -591,10 +591,55 @@ def phase_kernels(rates) -> list[dict]:
                 "two_stage_ms", "shape")}
     out.append(entry)
     del normal, tie_scores
+    check_topk_cells_shape(rates, gen)
     for rec in out[:2]:
         print(f"[kernel] {rec['name']}: {json.dumps(rec)}")
     torch.cuda.empty_cache()
     return out
+
+
+#: stage 1 at the exact cells' shape: 1,024 queries over 2.1M documents
+#: at k = 100, 513 blocks of 4,096 (the last 2,848 columns)
+CELLS_Q, CELLS_D, CELLS_K = 1024, 2_100_000, 100
+
+
+def check_topk_cells_shape(rates, gen) -> None:
+    """Stage 1 at the exact cells' shape on Gaussian and few-valued (0.25
+    × an integer in [−60, 60], as ``dpr100x.bulk``'s) scores: the first 64
+    rows of the full call bit for bit equal to ``topk_blocks_ref`` on that
+    slice, and the full call's time beside its bound (the scores read
+    once, the candidates written once)."""
+    byte_rate, _, _, f32_rate = rates
+    bd = default_block_d(CELLS_K)
+    n_blocks = -(-CELLS_D // bd)
+    b_ms, b_by = bound(CELLS_Q * CELLS_D * 4 + CELLS_Q * n_blocks * CELLS_K
+                       * 8, float(CELLS_Q * CELLS_D), f32_rate, byte_rate)
+    rec = {"shape": f"Q={CELLS_Q} D={CELLS_D} k={CELLS_K} block_d={bd}",
+           "bound_ms": b_ms, "bound_by": b_by}
+    for label in ("gaussian", "few"):
+        if label == "gaussian":
+            scores = torch.randn(CELLS_Q, CELLS_D, device="cuda",
+                                 generator=gen)
+        else:
+            scores = torch.randint(-60, 61, (CELLS_Q, CELLS_D), device="cuda",
+                                   generator=gen, dtype=torch.int8
+                                   ).float().mul_(0.25)
+        gv, gi = topk_blocks(scores, CELLS_K, bd)
+        wv, wi = topk_blocks_ref(scores[:64], CELLS_K, bd)
+        same = (torch.equal(gv[:64].view(torch.int32), wv.view(torch.int32))
+                and torch.equal(gi[:64], wi))
+        print(f"[kernel] topk_blocks cells' shape {label}: first 64 rows "
+              f"{'exact' if same else 'MISMATCH'}")
+        if not same:
+            raise AssertionError(f"topk_blocks at the cells' shape ({label}) "
+                                 "disagrees with topk_blocks_ref")
+        del gv, gi, wv, wi
+        rec[f"ms_{label}"] = cuda_ms(
+            lambda: topk_blocks(scores, CELLS_K, bd), 10)
+        rec[f"roofline_{label}"] = 100.0 * b_ms / rec[f"ms_{label}"]
+        del scores
+        torch.cuda.empty_cache()
+    print(f"[kernel] topk_blocks cells' shape: {json.dumps(rec)}")
 
 
 #: stage 2 at the dpr24x.bulk cell's shape (1,024 queries over 2.1M docs

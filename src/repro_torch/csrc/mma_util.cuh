@@ -1,6 +1,7 @@
-// Helpers shared by the tensor-core kernels (int8_ip.cu, binary_ip.cu,
-// ivf_fused.cu, fused_quantize.cu): cp.async copies into shared memory,
-// u8 → bf16 in registers, and the two mma.sync shapes they use.
+// Helpers shared by the kernels (int8_ip.cu, binary_ip.cu, ivf_fused.cu,
+// fused_quantize.cu, topk_blocks.cu): cp.async copies into shared memory,
+// bulk copies counted on an mbarrier (TMA), u8 → bf16 in registers, and
+// the two mma.sync shapes the tensor-core kernels use.
 
 #pragma once
 
@@ -38,6 +39,43 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A barrier that counts the bytes its bulk copies land (TMA), one arrival
+// a phase.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+}
+
+// the phase's arrival, with the bytes its copies will land
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// the phase's arrival, no copy: it completes at once
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_done(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// `bytes` contiguous bytes (a multiple of 16, 16-byte aligned) → shared
+__device__ __forceinline__ void bulk_1d(uint32_t dst, const void* src,
+                                        uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // two code bytes → bf16x2 (the lower byte in the lower half); exact: the

@@ -70,18 +70,62 @@
 // rounds below, adds 1 to ``ties`` (the wrapper's device counter
 // topk_blocks.tie_tiles), one atomic a tile that takes it.
 // Shapes: the main path's (block_d ≤ 1024, k ≤ 32) runs a warp per block
-// with the tile in registers and no block barriers (below); other blocks a
-// CTA per block with the tile in shared memory (16 bytes a thread where
-// aligned).  A tile above 32,768 columns is read from global memory in
-// every pass, and a sort above 8,192 entries runs in a global scratch the
-// wrapper allocates: slower, same output.
+// with the tile in registers and no block barriers (below); 32 < k ≤ 128
+// at block_d ≤ 4,096 (the exact cells' k = 100) the ring path (next
+// note); other blocks a CTA per block with the tile in shared memory (16
+// bytes a thread where aligned).  A tile above 32,768 columns is read from
+// global memory in every pass, and a sort above 8,192 entries runs in a
+// global scratch the wrapper allocates: slower, same output.
+//
+// Stage 1's ring path (topk_blocks_kernel<COLS>, COLS = 4,096 or 2,048).
+// Bound on an H100 SXM at the exact cells' shape, (1,024 × 2.1M) scores at
+// k = 100 in 513 blocks of 4,096: 8.60 GB read and 0.42 GB written, 2.69
+// ms, bytes.  That is 0.65 µs of an SM a tile (525,312 tiles over 132
+// SMs); the per-block CTA kernel took 2.1 µs, bound by its instructions
+// and barriers (three passes over the tile, a block-wide sort of every
+// key at its bound), with no later tile's bytes in flight.  Here:
+// - Persistent CTAs, four an SM, each walking tiles blockIdx.x, +
+//   gridDim.x, ...; thread 0 keeps the next two landing in a ring of
+//   three shared-memory slots by cp.async.bulk on an mbarrier each.  A
+//   tile not on 16 bytes (D % 4 ≠ 0) is read from global memory instead.
+// - The bound: each 8-column group's maximum as a key, and warp 0's
+//   search for the k-th largest of the 512 (256 at COLS = 2,048): a warp
+//   sum of the keys at or above a point, halving a range, the point then
+//   raised to one of the keys.  k groups, so k keys, lie at or above it;
+//   on Gaussian tiles ~1.1·k keys do, on lattice (1-bit) tiles ~1.25·k.
+// - The survivors, keys at or above it, appended by a warp scan and one
+//   shared atomic a warp in a second read of the slot.  Past 256 of them
+//   the tile's radix select above decides (a tie tile).
+// - Exactly k, then a small sort, by warp 1 while warp 0 takes the next
+//   tile's bound: up to 128 survivors are sorted in its registers (4 a
+//   lane, bitonic, shuffles past stride 2); past 128 the keys above the
+//   bound are kept where they are k or more, else those and the lowest
+//   columns of the keys at the bound (a warp search on ~column), packed,
+//   then sorted the same way (past 128 kept, 8 a lane).
+// - The design budget: ≤ 2,500 warp instructions a tile (the per-block
+//   kernel ~7,800).  Each CTA adds its tiles' survivors (those off the tie
+//   path) to ``survivors`` (topk_blocks.bound_survivors) once, at exit.
+// On an H100 80GB HBM3 at 700 W, traced in the cells: 3.6 ms a batch on
+// int8 scores and 4.0 ms on 1-bit scores (75% and 67% of the bound; the
+// per-block kernel 8.5 and 9.3 ms).
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cfloat>
 #include <cmath>
 #include <cstdint>
 
+#include "mma_util.cuh"
+
 namespace {
+
+using mma_util::bulk_1d;
+using mma_util::mbar_arrive;
+using mma_util::mbar_done;
+using mma_util::mbar_expect;
+using mma_util::mbar_init;
+using mma_util::smem_addr;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_TILE = 32768;  // columns held in shared memory
@@ -91,6 +135,20 @@ __device__ __forceinline__ unsigned key_of(float v) {
   if (v == -INFINITY) return 0u;
   const unsigned u = __float_as_uint(v + 0.0f);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// the float whose key is ``key`` (for a key of a float: that float, ±0.0
+// as +0.0)
+__device__ __forceinline__ float key_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? key ^ 0x80000000u : ~key);
+}
+
+// an element's raw bits from its key, reading ±0.0 (whose sign the key
+// drops) from s[col]
+__device__ __forceinline__ float value_of(unsigned key, const float* s,
+                                          int col) {
+  if (key == 0x80000000u) return s[col];
+  return key_value(key);
 }
 
 // the element's raw bits: from the shared tile, or from global memory
@@ -380,6 +438,455 @@ __device__ void sort_and_emit(unsigned long long* cand, int found, int kk,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Stage 1's ring path (the header's stage-1 note): 32 < k ≤ 128, tiles of
+// at most RING_COLS columns.
+
+constexpr int RING_K = 128;       // the largest k: one warp sorts 128
+constexpr int RING_NT = 256;
+constexpr int RING_SLOTS = 3;     // tiles a CTA holds: one read, two landing
+constexpr int RING_CAP = 256;     // survivors kept; more: the radix select
+constexpr int RING_CTAS = 4;      // CTAs an SM (≤ 64 registers a thread)
+constexpr int RING_COLS = 4096;   // the widest tile
+constexpr int GROUP = 8;          // columns a group maximum covers
+
+// With at least kk of the N values of every lane (the warp's) at or above
+// lo (at_lo of them) and fewer than kk at or above hi: halves [lo, hi),
+// counting the values at or above its midpoint (a warp sum) each round,
+// until it is at most stop + 1 wide or at most ``enough`` values lie at or
+// above lo; returns lo.  With stop 0, or enough = kk over distinct values,
+// every value at or above lo is among the kk largest.
+template <int N>
+__device__ unsigned warp_halve(const unsigned (&v)[N], unsigned kk,
+                               unsigned lo, unsigned at_lo,
+                               unsigned long long hi, unsigned long long stop,
+                               unsigned enough) {
+  while (hi - lo > stop + 1 && at_lo > enough) {
+    const unsigned mid = lo + static_cast<unsigned>((hi - lo) / 2);
+    unsigned c = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) c += v[j] >= mid;
+    c = __reduce_add_sync(FULL, c);
+    if (c >= kk) {
+      lo = mid;
+      at_lo = c;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// A bound on the kk-th largest (1 ≤ kk ≤ 32·N) of the N keys of every lane
+// of the warp: one of the keys, with at least kk keys at or above it, and
+// at most kk/16 more than kk of them or below the kk-th by 1/2,048 of the
+// range searched at most.  The range starts at [the maximum − 2²⁴ (2
+// binades), the maximum], or wider where fewer than kk keys lie in it;
+// the point found is raised to the least key at or above it.
+template <int N>
+__device__ unsigned warp_bound(const unsigned (&v)[N], unsigned kk) {
+  unsigned top = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) top = max(top, v[j]);
+  top = __reduce_max_sync(FULL, top);
+  unsigned lo = 0, at_lo = 32 * N;
+  for (int w = 24; w <= 30; w += 3) {  // 2, 16 and 128 binades down
+    if (top <= (1u << w)) break;
+    unsigned c = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) c += v[j] >= top - (1u << w);
+    c = __reduce_add_sync(FULL, c);
+    if (c >= kk) {
+      lo = top - (1u << w);
+      at_lo = c;
+      break;
+    }
+  }
+  const unsigned long long hi = static_cast<unsigned long long>(top) + 1;
+  lo = warp_halve(v, kk, lo, at_lo, hi, (hi - lo) >> 11, kk + kk / 16);
+  unsigned least = ~0u;
+#pragma unroll
+  for (int j = 0; j < N; ++j) least = min(least, v[j] >= lo ? v[j] : ~0u);
+  return __reduce_min_sync(FULL, least);
+}
+
+// Bitonic sort, descending, of 32·R entries by one warp, entry R·lane + r
+// in e[r]: every merge in one direction (its first step compares i with
+// i ^ (size − 1)), strides below R within a lane, the others by shuffles.
+template <int R>
+__device__ __forceinline__ void warp_sort(unsigned long long (&e)[R]) {
+  const int lane = threadIdx.x % 32;
+  const auto keep = [](unsigned long long& hi_, unsigned long long& lo_) {
+    const unsigned long long a = hi_, b = lo_;
+    hi_ = a > b ? a : b;
+    lo_ = a > b ? b : a;
+  };
+#pragma unroll
+  for (int size = 2; size <= 32 * R; size <<= 1) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      const bool flip = stride == size / 2;
+      if (stride >= R) {
+        // the partner is in lane ^ m; the lower index keeps the larger
+        const int m = flip ? (size - 1) / R : stride / R;
+        const bool lower = (lane & (stride / R)) == 0;
+        unsigned long long o[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          o[r] = __shfl_xor_sync(FULL, e[flip ? R - 1 - r : r], m);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          e[r] = lower == (e[r] > o[r]) ? e[r] : o[r];
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int q = flip ? r ^ (size - 1) : r ^ stride;
+          if (q > r) keep(e[r], e[q]);
+        }
+      }
+    }
+  }
+}
+
+// The found ≤ 32·R entries of cand sorted by one warp, and the first kk
+// written as raw value bits (±0.0 read from s) and columns base + column.
+template <int R>
+__device__ __forceinline__ void sort_and_write(
+    const unsigned long long* cand, int found, int kk, const float* s,
+    int base, float* out_v, int* out_i) {
+  const int lane = threadIdx.x % 32;
+  unsigned long long e[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    e[r] = R * lane + r < found ? cand[R * lane + r] : 0ull;
+  warp_sort<R>(e);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int at = R * lane + r;
+    if (at < kk) {
+      const int col = entry_col(e[r]);
+      out_v[at] = value_of(static_cast<unsigned>(e[r] >> 32), s, col);
+      out_i[at] = base + col;
+    }
+  }
+}
+
+// Of the found (RING_K < found ≤ RING_CAP) entries of cand, all at or
+// above the tile's bound (one of its keys), those that hold the k largest
+// and that one warp tells apart without a sort: the keys above the bound
+// where they are k or more, else those and, of the keys at the bound, the
+// lowest columns (the largest low words ~column) to make k.  Packed to the
+// front of cand; returns their number.
+__device__ __noinline__ int keep_k(unsigned long long* cand, int found,
+                                   int k, unsigned bound) {
+  const int lane = threadIdx.x % 32;
+  constexpr int R = RING_CAP / 32;
+  unsigned long long w[R];
+  unsigned above = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    w[r] = 32 * r + lane < found ? cand[32 * r + lane] : 0ull;
+    above += static_cast<unsigned>(w[r] >> 32) > bound;
+  }
+  above = __reduce_add_sync(FULL, above);
+  const bool take_at = above < static_cast<unsigned>(k);
+  unsigned low_min = 0;  // of the keys at the bound, the low words kept
+  if (take_at) {
+    unsigned low[R], top = 0, least = ~0u;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool at = static_cast<unsigned>(w[r] >> 32) == bound;
+      low[r] = at ? static_cast<unsigned>(w[r]) : 0u;
+      top = max(top, low[r]);
+      least = min(least, at ? low[r] : ~0u);
+    }
+    top = __reduce_max_sync(FULL, top);
+    least = __reduce_min_sync(FULL, least);
+    low_min = warp_halve(low, k - above, least, ~0u,
+                         static_cast<unsigned long long>(top) + 1, 0,
+                         k - above);
+  }
+  __syncwarp();  // every lane has read cand
+  const unsigned lane_lt = (1u << lane) - 1u;
+  unsigned kept = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const unsigned key = static_cast<unsigned>(w[r] >> 32);
+    const bool keep = key > bound || (take_at && key == bound &&
+                                      static_cast<unsigned>(w[r]) >= low_min);
+    const unsigned m = __ballot_sync(FULL, keep);
+    if (keep) cand[kept + __popc(m & lane_lt)] = w[r];
+    kept += __popc(m);
+  }
+  __syncwarp();
+  return static_cast<int>(kept);
+}
+
+// shared memory of the ring path: the slots, the survivors, the group
+// maxima's keys and the slots' barriers (Shared holds the rest)
+template <int COLS>
+struct Ring {
+  static constexpr int VEC = COLS / (4 * RING_NT);  // float4 a thread
+  static constexpr int GROUPS = COLS / GROUP;       // 512 or 256
+  static constexpr int SLOT = COLS * 4;
+  static constexpr int CAND = RING_SLOTS * SLOT;
+  static constexpr int GKEYS = CAND + RING_CAP * 8;
+  static constexpr int BARS = GKEYS + GROUPS * 4;
+  static constexpr int BYTES = BARS + RING_SLOTS * 8;
+  static_assert(VEC % 2 == 0 && GROUPS >= RING_K, "groups of two float4");
+};
+
+// thread tid's elements of a tile, −inf past n: element 4j + c is column
+// 4·(tid + RING_NT·j) + c, from the shared slot (bulk) or global memory
+template <int VEC>
+__device__ __forceinline__ void ring_load(float (&v)[4 * VEC],
+                                          const float* slot, const float* s,
+                                          int n, bool bulk) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int col = 4 * (tid + RING_NT * j);
+    if (bulk) {
+      const float4 x = col < n ? reinterpret_cast<const float4*>(slot)[col / 4]
+                               : make_float4(-INFINITY, -INFINITY, -INFINITY,
+                                             -INFINITY);
+      v[4 * j] = x.x;
+      v[4 * j + 1] = x.y;
+      v[4 * j + 2] = x.z;
+      v[4 * j + 3] = x.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[4 * j + c] = col + c < n ? __ldcs(s + col + c) : -INFINITY;
+    }
+  }
+}
+
+// A ring CTA's tile: (row, block), where it lies and whether a bulk copy
+// takes it.  The CTA's i-th tile is first + i·step of the (row, block)
+// grid; a cursor steps on without dividing.
+struct RingTile {
+  int row, blk;
+  int base, n;
+  const float* s;
+  bool bulk;  // 16-byte aligned and a multiple of 16 bytes: the slot holds it
+  __device__ void at(const float* scores, int n_d, int block_d) {
+    base = blk * block_d;
+    n = min(block_d, n_d - base);
+    s = scores + static_cast<size_t>(row) * n_d + base;
+    bulk = reinterpret_cast<uintptr_t>(s) % 16 == 0 && n % 4 == 0;
+  }
+  __device__ void next(int d_row, int d_blk, int n_blocks) {
+    row += d_row;
+    blk += d_blk;
+    if (blk >= n_blocks) {
+      blk -= n_blocks;
+      ++row;
+    }
+  }
+};
+
+// The ring path's CTA (the header's stage-1 note): it walks tiles
+// blockIdx.x, + gridDim.x, ... of the (row, block) grid.  Thread 0 keeps
+// the next RING_SLOTS − 1 tiles landing in the slots by bulk copies; for
+// each tile the CTA takes the bound and the survivors at or above it, and
+// warp 1 writes the tile's k largest while warp 0 takes the next bound.
+template <int COLS>
+__device__ __forceinline__ void ring_tiles(
+    const float* __restrict__ scores, float* __restrict__ vals,
+    int* __restrict__ idx, unsigned long long* __restrict__ ties,
+    unsigned long long* __restrict__ survivors, int n_q, int n_d, int k,
+    int block_d, int n_blocks, unsigned char* smem, Shared& sh) {
+  using R = Ring<COLS>;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  auto* cand = reinterpret_cast<unsigned long long*>(smem + R::CAND);
+  auto* gkeys = reinterpret_cast<unsigned*>(smem + R::GKEYS);
+  const uint32_t bar0 = smem_addr(smem + R::BARS);
+  const long long n_tiles = static_cast<long long>(n_q) * n_blocks;
+  const long long first = blockIdx.x, step = gridDim.x;
+  const int my_tiles =
+      first < n_tiles ? static_cast<int>((n_tiles - 1 - first) / step + 1) : 0;
+
+  const int d_row = static_cast<int>(step / n_blocks);
+  const int d_blk = static_cast<int>(step % n_blocks);
+  const RingTile start{static_cast<int>(first / n_blocks),
+                       static_cast<int>(first % n_blocks)};
+  const auto slot_of = [&](int i) {
+    return reinterpret_cast<float*>(smem + (i % RING_SLOTS) * R::SLOT);
+  };
+  // thread 0: tile i (the cursor ``ld``) into its slot, counted on the
+  // slot's barrier; a tile read from global memory completes the phase
+  // with no copy
+  RingTile ld = start;
+  const auto load = [&](int i) {
+    ld.at(scores, n_d, block_d);
+    const uint32_t bar = bar0 + 8 * (i % RING_SLOTS);
+    if (ld.bulk) {
+      mbar_expect(bar, ld.n * 4);
+      bulk_1d(smem_addr(slot_of(i)), ld.s, ld.n * 4, bar);
+    } else {
+      mbar_arrive(bar);
+    }
+    ld.next(d_row, d_blk, n_blocks);
+  };
+
+  if (tid == 0) {
+    for (int b = 0; b < RING_SLOTS; ++b) mbar_init(bar0 + 8 * b);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < min(RING_SLOTS, my_tiles); ++i) load(i);
+  unsigned long long n_surv = 0, n_ties = 0;  // thread 0's, added at exit
+
+  // warp 1: the k largest of the previous tile's found entries in cand
+  // (keep_k past 128), sorted, to its output
+  RingTile prev = start;
+  int prev_found = 0;
+  unsigned prev_bound = 0;
+  const auto emit = [&]() {
+    int found = prev_found;
+    if (found > RING_K) found = keep_k(cand, found, k, prev_bound);
+    const int kk = min(k, found);
+    const size_t out =
+        (static_cast<size_t>(prev.row) * n_blocks + prev.blk) * k;
+    float* out_v = vals + out;
+    int* out_i = idx + out;
+    if (found <= RING_K)
+      sort_and_write<RING_K / 32>(cand, found, kk, prev.s, prev.base, out_v,
+                                  out_i);
+    else
+      sort_and_write<RING_CAP / 32>(cand, found, kk, prev.s, prev.base,
+                                    out_v, out_i);
+    for (int at = kk + lane; at < k; at += 32) {  // past the live elements
+      out_v[at] = -INFINITY;
+      out_i[at] = prev.base;
+    }
+  };
+
+  RingTile t = start;
+  for (int i = 0; i < my_tiles; ++i, t.next(d_row, d_blk, n_blocks)) {
+    t.at(scores, n_d, block_d);
+    const float* slot = slot_of(i);
+    const float* src = t.bulk ? slot : t.s;
+    while (!mbar_done(bar0 + 8 * (i % RING_SLOTS), (i / RING_SLOTS) & 1)) {
+    }
+    // 1. each group's maximum (8 columns), as a key
+    {
+      float v[4 * R::VEC];
+      ring_load<R::VEC>(v, slot, t.s, t.n, t.bulk);
+#pragma unroll
+      for (int h = 0; h < R::VEC / 2; ++h) {
+        float m = v[8 * h];
+#pragma unroll
+        for (int e = 1; e < 8; ++e) m = fmaxf(m, v[8 * h + e]);
+        gkeys[h * RING_NT + tid] = key_of(m);
+      }
+    }
+    __syncthreads();
+    // 2. warp 0: the bound, a key at or just below the k-th largest group
+    //    maximum (so k keys lie at or above it); warp 1 meanwhile writes
+    //    the previous tile's output
+    if (warp == 0) {
+      unsigned g[R::GROUPS / 32];
+#pragma unroll
+      for (int j = 0; j < R::GROUPS / 128; ++j) {
+        const uint4 x = reinterpret_cast<const uint4*>(gkeys)[
+            lane * (R::GROUPS / 128) + j];
+        g[4 * j] = x.x;
+        g[4 * j + 1] = x.y;
+        g[4 * j + 2] = x.z;
+        g[4 * j + 3] = x.w;
+      }
+      const unsigned b = warp_bound(g, static_cast<unsigned>(k));
+      if (lane == 0) {
+        sh.bound = b;
+        sh.n_found = 0;
+      }
+    } else if (warp == 1 && i > 0) {
+      emit();
+    }
+    __syncthreads();
+    // 3. the survivors, keys at or above the bound (the elements at or
+    //    above its value; a bound of 0 keeps every element above −inf):
+    //    a warp scan places them, one shared atomic a warp
+    const unsigned bound = sh.bound;
+    {
+      const float floor_v = bound == 0 ? -FLT_MAX : key_value(bound);
+      float v[4 * R::VEC];
+      ring_load<R::VEC>(v, slot, t.s, t.n, t.bulk);
+      unsigned bits = 0;
+#pragma unroll
+      for (int e = 0; e < 4 * R::VEC; ++e)
+        bits |= static_cast<unsigned>(v[e] >= floor_v) << e;
+      const unsigned mine = __popc(bits);
+      unsigned incl = mine;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned x = __shfl_up_sync(FULL, incl, off);
+        if (lane >= off) incl += x;
+      }
+      unsigned wbase = 0;
+      if (lane == 31 && incl) wbase = atomicAdd(&sh.n_found, incl);
+      unsigned pos = __shfl_sync(FULL, wbase, 31) + incl - mine;
+      while (bits) {
+        const int e = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int col = 4 * (tid + RING_NT * (e / 4)) + e % 4;
+        if (pos < static_cast<unsigned>(RING_CAP))
+          cand[pos] = entry(key_of(t.bulk ? slot[col] : t.s[col]), col);
+        ++pos;
+      }
+    }
+    __syncthreads();
+    int found = static_cast<int>(sh.n_found);
+    if (found > RING_CAP) {
+      // 4. more than the buffer holds (heavy ties at the bound; k ≤ found
+      //    elements above −inf): the tile's radix select, as the per-block
+      //    kernel's, leaves the k largest in cand
+      if (tid == 0) ++n_ties;
+      __syncthreads();  // every thread has read n_found
+      if (tid == 0) sh.n_found = 0;
+      const Rank rank = radix_rank<RING_NT>(
+          [&](auto count) {
+            for (int c = tid; c < t.n; c += RING_NT) count(key_of(src[c]));
+          },
+          static_cast<unsigned>(k), sh.hist);
+      take_ranked<RING_NT>([&](int c) { return key_of(src[c]); }, t.n, 0u,
+                           rank, cand, &sh.n_found, sh.wsum);
+      __syncthreads();
+      found = k;
+    } else if (tid == 0) {
+      n_surv += found;
+    }
+    // the slot is read: the tile RING_SLOTS on takes it
+    if (tid == 0 && i + RING_SLOTS < my_tiles) load(i + RING_SLOTS);
+    prev = t;
+    prev_found = found;
+    prev_bound = bound;
+  }
+  if (warp == 1 && my_tiles > 0) emit();
+  if (tid == 0) {
+    if (n_surv) atomicAdd(survivors, n_surv);
+    if (n_ties) atomicAdd(ties, n_ties);
+  }
+}
+
+// The ring path's kernel: a second template of the name, over tiles of at
+// most COLS columns.
+template <int COLS>
+__global__ void __launch_bounds__(RING_NT, RING_CTAS)
+topk_blocks_kernel(const float* __restrict__ scores, float* __restrict__ vals,
+                   int* __restrict__ idx,
+                   unsigned long long* __restrict__ ties,
+                   unsigned long long* __restrict__ survivors, int n_q,
+                   int n_d, int k, int block_d, int n_blocks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Shared sh;
+  ring_tiles<COLS>(scores, vals, idx, ties, survivors, n_q, n_d, k, block_d,
+                   n_blocks, smem, sh);
+}
+
 template <int NT, bool TILE>
 __global__ void __launch_bounds__(NT)
 topk_blocks_kernel(const float* __restrict__ scores, float* __restrict__ vals,
@@ -531,12 +1038,6 @@ constexpr int WARP_CTA = 4;  // warps (tiles) a CTA
 // leaves room for 5
 constexpr int WARP_CTAS_PER_SM = 10;
 
-__device__ __forceinline__ float value_of(unsigned key, const float* s,
-                                          int col) {
-  if (key == 0x80000000u) return s[col];  // ±0.0: the sign is in memory
-  return __uint_as_float((key & 0x80000000u) ? key ^ 0x80000000u : ~key);
-}
-
 __global__ void __launch_bounds__(32 * WARP_CTA, WARP_CTAS_PER_SM)
 topk_warp_kernel(const float* __restrict__ scores, float* __restrict__ vals,
                  int* __restrict__ idx,
@@ -671,6 +1172,51 @@ int launch(const void* scores, void* vals, void* idx, void* scratch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the ring path: as many CTAs as the card holds at once, at most a tile
+// each.  The kernel's attributes are set, and the CTAs a device holds
+// found, at the first call on that device, not at every launch.
+constexpr int MAX_DEVICES = 64;
+
+template <int COLS>
+int launch_ring(const void* scores, void* vals, void* idx, void* ties,
+                void* survivors, int n_q, int n_d, int k, int block_d,
+                int n_blocks, cudaStream_t stream) {
+  void (*kern)(const float*, float*, int*, unsigned long long*,
+               unsigned long long*, int, int, int, int, int) =
+      topk_blocks_kernel<COLS>;
+  const int smem = Ring<COLS>::BYTES;
+  static std::atomic<int> resident_on[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int resident = dev < MAX_DEVICES ? resident_on[dev].load() : 0;
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                          RING_NT, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev < MAX_DEVICES) resident_on[dev].store(resident);
+  }
+  const long long tiles = static_cast<long long>(n_q) * n_blocks;
+  const long long ctas = tiles < resident ? tiles : resident;
+  kern<<<static_cast<unsigned>(ctas), RING_NT, smem, stream>>>(
+      static_cast<const float*>(scores), static_cast<float*>(vals),
+      static_cast<int*>(idx), static_cast<unsigned long long*>(ties),
+      static_cast<unsigned long long*>(survivors), n_q, n_d, k, block_d,
+      n_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
 // Stage 2: topk_merge_kernel (the header's first note), a CTA a query row.
 
@@ -799,11 +1345,12 @@ topk_merge_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
 
 // p2: the survivors' sort length, the power of two ≥ min(k, block_d);
 // scratch: null (sort in shared memory) or n_q·n_blocks·p2 uint64 entries;
-// ties: one uint64 that each tile on the tie path adds 1 to.
+// ties: one uint64 that each tile on the tie path adds 1 to; survivors:
+// one uint64 that the ring path adds its tiles' survivors at the bound to.
 extern "C" int topk_blocks_launch(const void* scores, void* vals, void* idx,
-                                  void* scratch, void* ties, int n_q, int n_d,
-                                  int k, int block_d, int n_blocks, int p2,
-                                  void* stream) {
+                                  void* scratch, void* ties, void* survivors,
+                                  int n_q, int n_d, int k, int block_d,
+                                  int n_blocks, int p2, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (block_d <= WARP_TILE && k <= WARP_K) {
     const long long tiles = static_cast<long long>(n_q) * n_blocks;
@@ -815,6 +1362,13 @@ extern "C" int topk_blocks_launch(const void* scores, void* vals, void* idx,
         static_cast<int*>(idx), static_cast<unsigned long long*>(ties), n_q,
         n_d, k, block_d, n_blocks);
     return static_cast<int>(cudaGetLastError());
+  }
+  if (k > WARP_K && k <= RING_K && block_d <= RING_COLS) {
+    if (block_d <= RING_COLS / 2)
+      return launch_ring<RING_COLS / 2>(scores, vals, idx, ties, survivors,
+                                        n_q, n_d, k, block_d, n_blocks, st);
+    return launch_ring<RING_COLS>(scores, vals, idx, ties, survivors, n_q,
+                                  n_d, k, block_d, n_blocks, st);
   }
   if (block_d > MAX_TILE)
     return launch<512, false>(scores, vals, idx, scratch, ties, n_q,

@@ -42,8 +42,9 @@ SIGNATURES = {
     #  n_docs, n_words, accumulate, stream)
     "binary_ip_launch": [_p, _i, _p, _i, _p, _i, _i, _i, _i, _p],
     # (scores f32, vals f32, idx i32, sort scratch u64 | null, tie tiles
-    #  u64, n_q, n_d, k, block_d, n_blocks, sort length, stream)
-    "topk_blocks_launch": [_p] * 5 + [_i] * 6 + [_p],
+    #  u64, bound survivors u64, n_q, n_d, k, block_d, n_blocks, sort
+    #  length, stream)
+    "topk_blocks_launch": [_p] * 6 + [_i] * 6 + [_p],
     # (vals f32, ids i32, out vals f32, out ids i64, scratch u64 | null,
     #  tie rows u64, n_q, n_lists, k, buffer entries, stream)
     "topk_merge_launch": [_p] * 6 + [_i] * 4 + [_p],

@@ -14,7 +14,12 @@ On the card each stage counts the inputs that took its slow tie path in
 a device counter of :mod:`repro_torch.tracing`: ``topk_blocks.tie_tiles``
 ((row, block) tiles that took the radix select or the warp kernel's
 rounds, out of ``topk_blocks.tiles``, a host count) and
-``topk_merge.tie_rows`` (rows whose runs overflowed the buffer).
+``topk_merge.tie_rows`` (rows whose runs overflowed the buffer).  Stage
+1's ring path (32 < k ≤ 128, ``block_d`` ≤ 4,096) also adds to the
+device counter ``topk_blocks.bound_survivors`` the elements at or above
+its bound in each tile it did not send down the tie path: over
+``topk_blocks.tiles`` − ``topk_blocks.tie_tiles`` of such calls, how
+many entries it chose the k from.
 """
 
 from __future__ import annotations
@@ -82,12 +87,14 @@ def topk_blocks(scores: torch.Tensor, k: int, block_d: int
     idx = torch.empty((n_q, n_blocks * k), dtype=torch.int32, device=s.device)
     if n_q and n_d:
         ties = tracing.device_counter("topk_blocks.tie_tiles", s.device)
+        survivors = tracing.device_counter("topk_blocks.bound_survivors",
+                                           s.device)
         with torch.cuda.device(s.device):
             _build.check(_build.library().topk_blocks_launch(
                 s.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                 scratch.data_ptr() if scratch is not None else None,
-                ties.data_ptr(), n_q, n_d, k, block_d, n_blocks, p2,
-                _build.stream_handle(s)), "topk_blocks")
+                ties.data_ptr(), survivors.data_ptr(), n_q, n_d, k, block_d,
+                n_blocks, p2, _build.stream_handle(s)), "topk_blocks")
         tracing.count("topk_blocks.launches")
         tracing.count("topk_blocks.tiles", n_q * n_blocks)
     return vals, idx
