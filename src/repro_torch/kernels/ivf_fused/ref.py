@@ -2,11 +2,11 @@
 
 The function ``csrc/ivf_fused.cu`` computes, as a loop over probe slots:
 gather each query's probed list, score it in f32 per backend, add the
-slot's base, mask pad rows, and fold the block into the running top-k with
-:func:`~repro_torch.retrieval.topk.masked_topk_by_id`.  (score desc, id
-asc) is a strict total order, so folding list by list gives the kernel's
-result exactly.  int8 scores are ``qe.float() @ codes.float().T`` in f32 —
-a bf16 matmul would round its output.
+slot's base, mask pad rows, and fold the block into the running top-k
+with :func:`~repro_torch.kernels.topk_blocks.ref.masked_topk_by_id`.
+(score desc, id asc) is a strict total order, so folding list by list
+gives the kernel's result exactly.  int8 scores are ``qe.float() @
+codes.float().T`` in f32 — a bf16 matmul would round its output.
 
 :func:`list_major_topk_ref` mirrors the card's stages instead — invert
 the probe table, score each list once for the (query, slot) pairs that
@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.binary_ip.ref import sign_dot_gathered_ref
-from repro_torch.retrieval.topk import NEG_INF, masked_topk_by_id
+from repro_torch.kernels.topk_blocks.ref import NEG_INF, masked_topk_by_id
 
 BACKENDS = ("float", "fp16", "int8", "onebit")
 

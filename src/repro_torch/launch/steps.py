@@ -31,7 +31,6 @@ import functools
 from typing import Any, Callable, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import (ArchConfig, DCNConfig, DINConfig,
                                       FMConfig, LMConfig, SchNetConfig,
@@ -39,7 +38,6 @@ from repro_torch.configs.base import (ArchConfig, DCNConfig, DINConfig,
 from repro_torch.data import batches as B
 from repro_torch.kernels.binary_ip.ops import binary_ip_scores
 from repro_torch.kernels.int8_ip.kernel import int8_ip
-from repro_torch.kernels.topk_blocks.ops import streaming_topk
 from repro_torch.models import gnn as G
 from repro_torch.models import layers as L
 from repro_torch.models import recsys as R
@@ -49,7 +47,7 @@ from repro_torch.parallel.sharding import (SINGLE_POD_RULES, AxisRules,
                                            PartitionSpec as P,
                                            ShardingContext, spec_for_shape,
                                            spec_shards)
-from repro_torch.retrieval.topk import (merge_topk, topk_in_order,
+from repro_torch.retrieval.topk import (_exact_topk, topk_in_order,
                                        topk_score_then_id)
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import trainer
@@ -477,60 +475,29 @@ def encode_kb_queries(index: dict, q: torch.Tensor) -> torch.Tensor:
 
 
 def make_kb_scorer(storage_kind: str, index: dict, z: torch.Tensor):
-    """``score(rows, block) → (Q_rows, B) f32`` for one storage kind.
+    """``(q_side, score)`` for one storage kind: the query side (fp32:
+    bf16(z); onebit: z; int8: bf16(z⊙scale) and z·zero) and
+    ``score(*q_side rows, block) → (Q_rows, B) f32``.
 
-    The query side (int8: bf16(z⊙scale) and z·zero; onebit: z's signs) is
-    prepared once for the whole batch, so every schedule — one pass over
-    the KB, chunks of queries and doc blocks, any shard count — scores
-    each (query, doc) pair with the same bits.
+    The query side is prepared once for the whole batch, so every
+    schedule — one pass over the KB, chunks of queries and doc blocks, any
+    shard count — scores each (query, doc) pair with the same bits.
     """
     if storage_kind == "fp32":
-        zb = z.to(torch.bfloat16).float()
-
-        def score(rows, block):
-            return zb[rows] @ block.to(torch.bfloat16).float().T
-    elif storage_kind == "onebit":
-        def score(rows, block):
-            return binary_ip_scores(z[rows], block, block.shape[-1] * 32,
+        def score(zb, block):
+            return zb @ block.to(torch.bfloat16).float().T
+        return (z.to(torch.bfloat16).float(),), score
+    if storage_kind == "onebit":
+        def score(zc, block):
+            return binary_ip_scores(zc, block, block.shape[-1] * 32,
                                     offset=0.5, use_kernel=True)
-    elif storage_kind == "int8":
-        qs = (z * index["scale"]).to(torch.bfloat16)
-        bias = z @ index["zero"]
-
-        def score(rows, block):
-            return int8_ip(qs[rows], block, bias=bias[rows])
-    else:
-        raise ValueError(f"unknown storage {storage_kind!r}")
-    return score
-
-
-def _stream_topk(score, n_q: int, storage, base: int, k: int, qc: int,
-                 dchunk: int):
-    """Running top-k over doc blocks of ``storage`` (local rows), per
-    query chunk (``repro``'s chunk and block counts); the (Q, D) score
-    matrix never exists."""
-    n_loc = storage.shape[0]
-    n_blocks = first_divisor_leq(n_loc, cdiv(n_loc, dchunk))
-    rows_b = n_loc // n_blocks
-    n_qc = first_divisor_leq(n_q, cdiv(n_q, qc))
-    rows_q = n_q // n_qc
-    out_v, out_i = [], []
-    for c in range(n_qc):
-        rows = slice(c * rows_q, (c + 1) * rows_q)
-        vals = idx = None
-        for bi in range(n_blocks):
-            s = score(rows, storage[bi * rows_b:(bi + 1) * rows_b])
-            bv, bidx = streaming_topk(s, k, use_kernel=True)
-            bidx = bidx + (bi * rows_b + base)
-            if bv.shape[1] < k:
-                pad = k - bv.shape[1]
-                bv = F.pad(bv, (0, pad), value=float("-inf"))
-                bidx = F.pad(bidx, (0, pad))
-            vals, idx = ((bv, bidx) if vals is None
-                         else merge_topk(vals, idx, bv, bidx, k))
-        out_v.append(vals)
-        out_i.append(idx)
-    return torch.cat(out_v), torch.cat(out_i)
+        return (z,), score
+    if storage_kind == "int8":
+        def score(qs, bias, block):
+            return int8_ip(qs, block, bias=bias)
+        return ((z * index["scale"]).to(torch.bfloat16),
+                z @ index["zero"]), score
+    raise ValueError(f"unknown storage {storage_kind!r}")
 
 
 def kb_search_topk(index: dict, z: torch.Tensor, *, storage_kind: str,
@@ -539,32 +506,34 @@ def kb_search_topk(index: dict, z: torch.Tensor, *, storage_kind: str,
     """The KB search step after the query encode: encoded queries ``z``
     (Q, d′) → top-k (values, int64 ids) by (score desc, id asc).
 
-    ``naive`` scores the whole KB at once and ranks each row (the
-    two-stage ``streaming_topk``: ``topk_score_then_id``'s order);
-    ``two_stage`` streams doc blocks per query chunk.  With ``n_shards`` >
-    1 each shard — rows split in order, row-major over the mesh's doc
-    axes — streams its own rows, then its k candidates are gathered in
-    shard order and merged.  Traffic a query: shards · k · (4 + 8) bytes,
-    independent of the KB's size.
+    ``naive`` scores the whole KB at once and ranks each row;
+    ``two_stage`` streams doc blocks per query chunk (``repro``'s chunk
+    and block counts), both in ``retrieval.topk``'s exact loop.  With
+    ``n_shards`` > 1 each shard — rows split in order, row-major over the
+    mesh's doc axes — streams its own rows, then its k candidates are
+    gathered in shard order and merged.  Traffic a query: shards · k ·
+    (4 + 8) bytes, independent of the KB's size.
     """
-    score = make_kb_scorer(storage_kind, index, z)
+    q_side, score = make_kb_scorer(storage_kind, index, z)
     storage = index["storage"]
-    n_q = z.shape[0]
+    n_q, n_rows = z.shape[0], storage.shape[0]
     if topk_impl == "naive":
-        return streaming_topk(score(slice(0, n_q), storage), k,
-                              use_kernel=True)
-    if n_shards == 1:
-        return _stream_topk(score, n_q, storage, 0, k, query_chunk,
-                            doc_chunk)
-    if storage.shape[0] % n_shards:
-        raise ValueError(f"{storage.shape[0]} KB rows do not split into "
+        return _exact_topk(score, q_side, storage, k, kernel=True,
+                           query_chunk=n_q, doc_chunk=n_rows)
+    if n_rows % n_shards:
+        raise ValueError(f"{n_rows} KB rows do not split into "
                          f"{n_shards} shards")
-    n_loc = storage.shape[0] // n_shards
-    parts = [_stream_topk(score, n_q, storage[s * n_loc:(s + 1) * n_loc],
-                          s * n_loc, k, query_chunk, doc_chunk)
-             for s in range(n_shards)]
+    n_loc = n_rows // n_shards
+    chunks = dict(
+        kernel=True,
+        query_chunk=n_q // first_divisor_leq(n_q, cdiv(n_q, query_chunk)),
+        doc_chunk=n_loc // first_divisor_leq(n_loc, cdiv(n_loc, doc_chunk)))
+    parts = [_exact_topk(score, q_side, storage[s * n_loc:(s + 1) * n_loc],
+                         k, **chunks) for s in range(n_shards)]
+    if n_shards == 1:
+        return parts[0]
     vals = torch.cat([v for v, _ in parts], dim=1)
-    idx = torch.cat([i for _, i in parts], dim=1)
+    idx = torch.cat([i + s * n_loc for s, (_, i) in enumerate(parts)], dim=1)
     COUNTER.add("all-gather", vals, idx)
     return topk_in_order(vals, idx, k)
 

@@ -25,11 +25,10 @@ from repro_torch import tracing
 from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.preprocess import as_tensor
 from repro_torch.core.quantization import words_from_numpy
-from repro_torch.kernels.topk_blocks.ops import streaming_topk
 from repro_torch.retrieval.scorers import (Scorer, apply_float_stages,
                                            encode_storage,
                                            scorer_for_pipeline)
-from repro_torch.retrieval.topk import resolve_k, topk_search
+from repro_torch.retrieval.topk import _exact_topk, resolve_k, topk_search
 from repro_torch.utils import (DeviceLike, check_backend, chunked,
                                resolve_device)
 
@@ -214,17 +213,17 @@ class CompressedIndex:
             queries = as_tensor(queries, self.device)
             tracing.count("search.queries", queries.shape[0])
             params = self.scorer.params()
-            kernel = self.scorer.use_kernel(self.storage)
-            vals, ids = [], []
-            for s, e in chunked(queries.shape[0], QUERY_CHUNK):
-                q = self.scorer.encode_queries(
-                    self.encode_queries(queries[s:e]))
-                scores = self.scorer.scores(q, self.storage, params=params)
-                v, i = streaming_topk(scores, k, use_kernel=kernel)
-                del scores             # free the (chunk, D) matrix early
-                vals.append(v)
-                ids.append(i)
-            return torch.cat(vals), torch.cat(ids)
+            # encoded by chunk: a query-side product's bits may depend on
+            # its row count, and the sharded index encodes the same chunks
+            enc = [self.scorer.encode_queries(
+                self.encode_queries(queries[s:e]))
+                for s, e in chunked(queries.shape[0], QUERY_CHUNK)]
+            q = enc[0] if len(enc) == 1 else torch.cat(enc)
+            return _exact_topk(  # the whole storage is one block
+                lambda qc, d: self.scorer.scores(qc, d, params=params),
+                (q,), self.storage, k,
+                kernel=self.scorer.use_kernel(self.storage),
+                query_chunk=QUERY_CHUNK, doc_chunk=self._n_docs)
 
     def state_dict(self) -> dict:
         """Pipeline state (incl. scorer codebooks), the encoded storage and

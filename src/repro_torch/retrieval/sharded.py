@@ -28,7 +28,7 @@ The per-query traffic is ``O(n_doc_shards · k · 8 bytes)`` whatever the
 KB's size: a peer copy across cards, nothing where shards share a card.
 Each shard runs the single-host index's own code on its rows — the
 scorer kernel (``int8_ip`` with the q·zero bias in its epilogue,
-``binary_ip``) and ``streaming_topk`` → ``topk_blocks`` for exact search,
+``binary_ip``) and the one exact loop (``topk_blocks`` → ``topk_merge``),
 one ``fused_ivf_topk`` launch over the batch for IVF — and the merge ranks
 by ``(score desc, id asc)``, so rankings equal the single-host index's in
 ids and score bits.
@@ -43,7 +43,6 @@ import torch
 
 from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.preprocess import as_tensor
-from repro_torch.kernels.topk_blocks.ops import streaming_topk
 from repro_torch.parallel.placement import (Mesh, device_grid,
                                             place_shards)
 from repro_torch.retrieval.index import QUERY_CHUNK, storage_tensor
@@ -52,9 +51,10 @@ from repro_torch.retrieval.ivf import (PROBE_BLOCK, IVFIndex, _pad_probe,
 from repro_torch.retrieval.scorers import (Scorer, apply_float_stages,
                                            encode_storage,
                                            scorer_for_pipeline)
-from repro_torch.retrieval.topk import (NEG_INF, masked_topk_by_id,
-                                        merge_topk_block, resolve_k,
-                                        resolve_nprobe, topk_search)
+from repro_torch.retrieval.topk import (NEG_INF, _exact_topk,
+                                        masked_topk_by_id, merge_topk_block,
+                                        resolve_k, resolve_nprobe,
+                                        topk_search)
 from repro_torch.utils import DeviceLike, check_backend, chunked
 
 AxisName = Union[str, Sequence[str]]
@@ -131,8 +131,8 @@ def make_sharded_scorer_search(mesh: Mesh, scorer: Scorer, *, k: int = 10,
     ``shards[r][s]`` doc shard ``s``'s encoded rows on the device of query
     shard ``r`` (:func:`place_shards`), ``offsets[s]`` its first global
     row; ``params`` is ``scorer.params()``.  Each shard scores with the
-    scorer's kernel and ranks with ``streaming_topk``, ``QUERY_CHUNK``
-    queries at a time, as :meth:`CompressedIndex.search` does.
+    scorer's kernel in the exact loop, ``QUERY_CHUNK`` queries at a time,
+    as :meth:`CompressedIndex.search` does.
     """
     doc_axes, q_axes = _as_tuple(doc_axis), _as_tuple(query_axis)
     if not doc_axes:
@@ -146,18 +146,13 @@ def make_sharded_scorer_search(mesh: Mesh, scorer: Scorer, *, k: int = 10,
             stor = shards[r][s]
             if stor.shape[0] == 0:
                 return None
-            dev = stor.device
-            qd, p = q[rows].to(dev), _params_on(params, dev)
-            kernel = scorer.use_kernel(stor)
-            kk = min(k, int(stor.shape[0]))
-            vals, ids = [], []
-            for a, b in chunked(qd.shape[0], QUERY_CHUNK):
-                scores = scorer.scores(qd[a:b], stor, params=p)
-                v, i = streaming_topk(scores, kk, use_kernel=kernel)
-                del scores             # free the (chunk, D) matrix early
-                vals.append(v)
-                ids.append(i + offsets[s])
-            return torch.cat(vals), torch.cat(ids)
+            p = _params_on(params, stor.device)
+            v, i = _exact_topk(
+                lambda qc, d: scorer.scores(qc, d, params=p),
+                (q[rows].to(stor.device),), stor, min(k, int(stor.shape[0])),
+                kernel=scorer.use_kernel(stor), query_chunk=QUERY_CHUNK,
+                doc_chunk=int(stor.shape[0]))
+            return v, i + offsets[s]
 
         vals, ids = _fan_out(grid, q.shape[0], k, local)
         return vals[:n], ids[:n]

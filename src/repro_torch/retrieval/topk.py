@@ -6,17 +6,18 @@ Counterpart of ``repro.retrieval.topk``.  Every ranking here is the strict
 stable sorts (by id, then by −score), and per-chunk top-k goes through the
 two-stage top-k (``topk_blocks``, then ``topk_merge``, which merges the
 blocks' sorted lists without a sort), whose ties go to the lowest column
-— the order ``lax.top_k`` gives in ``repro``.
-"""
+— the order ``lax.top_k`` gives in ``repro``.  Every exact search of the
+port runs the one loop :func:`_exact_topk`."""
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.utils import use_kernel
+from repro_torch.kernels.topk_blocks.ops import streaming_topk
+from repro_torch.kernels.topk_blocks.ref import (  # noqa: F401 (re-exported)
+    NEG_INF, masked_topk_by_id, topk_score_then_id)
+from repro_torch.utils import chunked, use_kernel
 
-NEG_INF = float("-inf")
 INT32_MAX = 2**31 - 1
 
 
@@ -34,37 +35,6 @@ def resolve_nprobe(nprobe, nlist: int, default=None) -> int:
     if nprobe is None or nprobe < 1:
         raise ValueError(f"nprobe must be ≥ 1, got {nprobe}")
     return min(int(nprobe), int(nlist))
-
-
-def topk_score_then_id(s: torch.Tensor, ids: torch.Tensor, k: int
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k by (score desc, doc id asc) — a strict total order.
-
-    A stable sort by id, then a stable sort by −score: equal scores keep
-    their id order.  (``repro`` does this with one ``lexsort``.)
-    """
-    ids = ids.expand_as(s)
-    by_id = torch.sort(ids, dim=-1, stable=True).indices
-    by_score = torch.sort(-torch.gather(s, -1, by_id), dim=-1,
-                          stable=True).indices[..., :k]
-    order = torch.gather(by_id, -1, by_score)
-    return torch.gather(s, -1, order), torch.gather(ids, -1, order)
-
-
-def masked_topk_by_id(s: torch.Tensor, ids: torch.Tensor, k: int
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-``k`` by (score desc, id asc), normalising unreachable slots.
-
-    Non-finite scores come back with id ``-1``; fewer than ``k`` candidate
-    columns pad the output out to ``k`` with ``(-inf, -1)``.
-    """
-    kk = min(k, s.shape[1])
-    vals, out = topk_score_then_id(s, ids, kk)
-    out = torch.where(torch.isfinite(vals), out, -1)
-    if kk < k:
-        vals = F.pad(vals, (0, k - kk), value=NEG_INF)
-        out = F.pad(out, (0, k - kk), value=-1)
-    return vals, out
 
 
 def merge_topk_block(run_v: torch.Tensor, run_i: torch.Tensor,
@@ -164,6 +134,38 @@ def merge_topk(vals_a, idx_a, vals_b, idx_b, k):
                          torch.cat([idx_a, idx_b], dim=-1), k)
 
 
+def _exact_topk(score, queries: tuple[torch.Tensor, ...],
+                docs: torch.Tensor, k: int, *, kernel: bool,
+                query_chunk: int, doc_chunk: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each query row's top ``k`` of ``docs``' rows by (score desc, id
+    asc): (Q, k) f32 scores and int64 ids.
+
+    ``score(*q, block)`` scores a row chunk of ``queries`` (tensors that
+    share their rows) against a block of ``docs``; whole tensors where
+    one chunk or block covers them.  One block's ``streaming_topk`` is the
+    result as it is; several (or none) fold in order from ``(−inf, 0)``.
+    """
+    n_q, n_rows = queries[0].shape[0], docs.shape[0]
+    one_block = 0 < n_rows <= doc_chunk
+    blocks = [(0, n_rows)] if one_block else list(chunked(n_rows, doc_chunk))
+    out_v, out_i = [], []
+    for a, b in chunked(n_q, query_chunk):
+        q = queries if b - a == n_q else tuple(t[a:b] for t in queries)
+        if not one_block:
+            vals = torch.full((b - a, k), NEG_INF, device=docs.device)
+            idx = torch.zeros((b - a, k), dtype=torch.long,
+                              device=docs.device)
+        for lo, hi in blocks:
+            v, i = streaming_topk(score(*q, docs if one_block else
+                                        docs[lo:hi]), k, use_kernel=kernel)
+            vals, idx = ((v, i) if one_block
+                         else merge_topk(vals, idx, v, i + lo, k))
+        out_v.append(vals)
+        out_i.append(idx)
+    return torch.cat(out_v), torch.cat(out_i)
+
+
 def topk_search(queries: torch.Tensor, docs: torch.Tensor, k: int,
                 sim: str = "ip", doc_chunk: int = 131072,
                 query_chunk: int = 4096, backend: str = "auto"
@@ -175,24 +177,7 @@ def topk_search(queries: torch.Tensor, docs: torch.Tensor, k: int,
     (the Hopper kernels where ``backend`` resolves to kernel numerics on a
     CUDA tensor).
     """
-    from repro_torch.kernels.topk_blocks.ops import streaming_topk
-
-    n_docs = docs.shape[0]
-    k = resolve_k(k, n_docs)
-    kernel = use_kernel(backend, docs.device)
-    out_vals, out_idx = [], []
-    for qs in range(0, queries.shape[0], query_chunk):
-        q = queries[qs: qs + query_chunk]
-        vals = torch.full((q.shape[0], k), NEG_INF, device=q.device)
-        idx = torch.zeros((q.shape[0], k), dtype=torch.long, device=q.device)
-        for ds in range(0, n_docs, doc_chunk):
-            scores = similarity(q, docs[ds: ds + doc_chunk], sim)
-            cv, ci = streaming_topk(scores, k, use_kernel=kernel)
-            if cv.shape[-1] < k:  # chunk smaller than k: pad
-                pad = k - cv.shape[-1]
-                cv = F.pad(cv, (0, pad), value=NEG_INF)
-                ci = F.pad(ci, (0, pad))
-            vals, idx = merge_topk(vals, idx, cv, ci.long() + ds, k)
-        out_vals.append(vals)
-        out_idx.append(idx)
-    return torch.cat(out_vals, dim=0), torch.cat(out_idx, dim=0)
+    k = resolve_k(k, docs.shape[0])
+    return _exact_topk(lambda q, d: similarity(q, d, sim), (queries,), docs,
+                       k, kernel=use_kernel(backend, docs.device),
+                       query_chunk=query_chunk, doc_chunk=doc_chunk)

@@ -4,6 +4,10 @@ Scores are small integers (as float32), so ties are everywhere: every
 function must reproduce ``repro``'s (score desc, id asc) order exactly.
 """
 
+import ast
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,6 +99,49 @@ def test_topk_search_integer_scores(backend, doc_chunk, k):
     got = pt.topk_search(_t(q), _t(d), k, doc_chunk=doc_chunk,
                          backend=backend)
     _eq(got, want)
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernel"])
+@pytest.mark.parametrize("query_chunk", [3, None])
+@pytest.mark.parametrize("doc_chunk", [None, 7, 64])
+def test_exact_loop_is_block_invariant(doc_chunk, query_chunk, backend):
+    """The one exact loop gives the full row's (score desc, id asc) top k,
+    ids and bits, whatever its query chunks and doc blocks (``None``: one
+    covers all), k = 9 above a 7-row block included."""
+    rng = np.random.default_rng(11)
+    q = _t(rng.integers(-1, 2, size=(9, 8)).astype(np.float32))
+    d = _t(rng.integers(-1, 2, size=(120, 8)).astype(np.float32))
+    got = pt.topk_search(q, d, 9, doc_chunk=doc_chunk or 120,
+                         query_chunk=query_chunk or 9, backend=backend)
+    want = pt.topk_score_then_id(q @ d.T, torch.arange(120), 9)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+def test_kernels_never_import_the_retrieval_layer():
+    """The order's primitives sit below the kernels: no module of
+    ``repro_torch.kernels`` imports ``repro_torch.retrieval``, at module
+    level or inside a function."""
+    import repro_torch.kernels as kernels
+
+    root = pathlib.Path(kernels.__file__).parent
+    found = []
+    for path in sorted(root.rglob("*.py")):
+        package = ".".join(("repro_torch", "kernels")
+                           + path.relative_to(root).parent.parts)
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = importlib.util.resolve_name(
+                    "." * node.level + (node.module or ""), package)
+                names = [base] + [f"{base}.{a.name}" for a in node.names]
+            else:
+                continue
+            if any(n.split(".")[:2] == ["repro_torch", "retrieval"]
+                   for n in names):
+                found.append(f"{path.relative_to(root)}:{node.lineno}")
+    assert not found, found
 
 
 def test_merge_topk_keeps_earlier_entries_first():
